@@ -8,6 +8,14 @@ its ``return_mu`` form, and ``pallas_render_depth``. ``render_score`` and
 ``render_score_reference`` / ``render_depth_reference`` (the same functions
 in plain PyTorch) for CPU tensors; there is no fallback from one to the other.
 
+The kernel tests a live triangle only at the pixels of a bounding box and
+keeps a pose's faces and image in shared memory, in chunks and tiles where
+they do not fit. What decides that lives here, where the CPU tests reach it:
+``triangle_boxes`` (the box rule, mirrored line for line in the kernel),
+``launch_plan`` (the shared-memory plan the kernel is launched with) and
+``render_mu_binned_reference`` (the kernel's algorithm in plain PyTorch,
+bitwise equal to ``render_mu_reference``, which tests every pixel).
+
 The kernel library is compiled with ``nvcc`` from the package's own source at
 the first CUDA launch, into ``_build/`` beside the package, and loaded with
 ``ctypes`` (plain C entry point, no PyTorch headers).
@@ -22,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 import numpy as np
@@ -31,7 +40,8 @@ from ..camera import CvCamera
 from ..devices import check_on_device, resolve_device
 
 __all__ = ["render_score", "render_score_reference", "render_depth",
-           "render_depth_reference", "triangle_forms", "render_mu_reference",
+           "render_depth_reference", "triangle_forms", "triangle_boxes", "inside_test",
+           "launch_plan", "render_mu_reference", "render_mu_binned_reference",
            "build_library", "SCORE_VARIANTS", "EPILOGUES"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -56,19 +66,41 @@ _TOL = 1e-5
 # elements of one [N, chunk, P] pixel-evaluation tensor in the plain version
 _CHUNK_BUDGET = 16 * 2**20
 
+# The kernel's shared-memory plan and bounding-box rule (mirrored line for
+# line in csrc/render_score.cu: kFormWords, kSmemLimit, kSmemStatic, kBoxTol,
+# kBoxErr, kBoxSlack, kBoxWhole).
+_FORM_WORDS = 13  # per live face: nine forms and the box c0, c1, r0, r1
+_SMEM_STATIC = 4224  # the kernel's static shared memory (4,112 B), rounded up
+_SMEM_LIMIT = 232448 - _SMEM_STATIC  # dynamic part of what a block may take on sm_90
+_VERT_CACHE_BYTES = 64 * 1024  # projected vertices are cached up to this size
+# pixel evaluations (poses x pixels) from which a launch takes the score of
+# uncovered pixels once, in a kernel of its own (~2 us of device time).
+# Device ms without / with it on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_profile.py kernels): bench shape (90,000 evaluations) 0.0162 / 0.0183,
+# tracking shape (2.9 M) 0.0634 / 0.0507, with 1250 poses (6 M) 0.1018 / 0.0770
+_BACKGROUND_MIN = 2**20
+_BOX_TOL = 4e-5  # 4 x the inside test's tolerance
+_BOX_ERR = 2.0 ** -15  # 512 x the fp32 unit roundoff 2^-24
+_BOX_SLACK = 1e-6
+_BOX_WHOLE = 6.0  # from this r on, the box is the whole image
+# the plan as the C entry points take it, in their argument order
+_PLAN_ARGS = ("threads", "cache_verts", "face_cap", "band_rows", "band_cols")
 
+
+@functools.lru_cache(maxsize=256)
 def _camera_scalars(cam: CvCamera):
     """fp32-rounded camera scalars in grid-centred coordinates, shared by the
-    kernel launch and the plain version so both see identical values."""
+    kernel launch and the plain version so both see identical values (cached,
+    so read-only)."""
     f32 = np.float32
     gcx, gcy = (cam.width - 1) / 2.0, (cam.height - 1) / 2.0
-    return {
+    return types.MappingProxyType({
         "fx": float(f32(cam.f_x)), "fy": float(f32(cam.f_y)), "s": float(f32(cam.s)),
         "cx_off": float(f32(f32(cam.c_x) - f32(gcx))),
         "cy_off": float(f32(f32(cam.c_y) - f32(gcy))),
         "near": float(f32(cam.near)), "far": float(f32(cam.far)),
         "gcx": gcx, "gcy": gcy,
-    }
+    })
 
 
 def project_vertices(verts, faces, cam: CvCamera, t, q):
@@ -102,6 +134,18 @@ def project_vertices(verts, faces, cam: CvCamera, t, q):
     return u, v, z
 
 
+def _edges_and_area(u, v):
+    """The three edge functions (alpha, beta, gamma; edge i lies opposite
+    corner i) and the signed double area of each projected triangle."""
+    def edge(ua, va, ub, vb):
+        return -(vb - va), ub - ua, (vb - va) * ua - (ub - ua) * va
+
+    e0 = edge(u[1], v[1], u[2], v[2])
+    e1 = edge(u[2], v[2], u[0], v[0])
+    e2 = edge(u[0], v[0], u[1], v[1])
+    return e0, e1, e2, e2[0] * u[2] + e2[1] * v[2] + e2[2]
+
+
 def triangle_forms(verts, faces, cam: CvCamera, t, q, backface_cull=True):
     """Per (pose, face): validity [N, F] and the nine forms the raster loop
     reads — edge forms 0 and 1 pre-divided by the signed area
@@ -110,14 +154,7 @@ def triangle_forms(verts, faces, cam: CvCamera, t, q, backface_cull=True):
     degenerate, depth outside (near, far), off the viewport, backfacing."""
     c = _camera_scalars(cam)
     u, v, z = project_vertices(verts, faces, cam, t, q)
-
-    def edge(ua, va, ub, vb):
-        return -(vb - va), ub - ua, (vb - va) * ua - (ub - ua) * va
-
-    a0, b0, c0 = edge(u[1], v[1], u[2], v[2])
-    a1, b1, c1 = edge(u[2], v[2], u[0], v[0])
-    a2, b2, c2 = edge(u[0], v[0], u[1], v[1])
-    area = a2 * u[2] + b2 * v[2] + c2
+    (a0, b0, c0), (a1, b1, c1), _, area = _edges_and_area(u, v)
 
     gcx, gcy = c["gcx"], c["gcy"]
     lo_u, hi_u = -gcx - 0.5, cam.width - 1 - gcx + 0.5
@@ -140,12 +177,23 @@ def triangle_forms(verts, faces, cam: CvCamera, t, q, backface_cull=True):
     return valid, forms
 
 
+def inside_test(forms, pu, pv):
+    """The raster core's test of triangles (their nine ``forms``) at pixel
+    centres (pu, pv), broadcast against each other: whether each barycentric
+    weight is at least -1e-5, and the perspective-correct inverse depth."""
+    A0, B0, C0, A1, B1, C1, IZ2, DZ0, DZ1 = forms
+    w0 = A0 * pu + B0 * pv + C0
+    w1 = A1 * pu + B1 * pv + C1
+    w2 = 1.0 - w0 - w1
+    inside = (w0 >= -_TOL) & (w1 >= -_TOL) & (w2 >= -_TOL)
+    return inside, IZ2 + DZ0 * w0 + DZ1 * w1
+
+
 def render_mu_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True):
     """Rendered depth μ [N, H*W] (0 = background) exactly as the kernel's
     raster loop computes it: max over live covering triangles of the
     perspective-correct inverse depth, then its reciprocal."""
-    valid, (A0, B0, C0, A1, B1, C1, IZ2, DZ0, DZ1) = triangle_forms(
-        verts, faces, cam, t, q, backface_cull)
+    valid, forms = triangle_forms(verts, faces, cam, t, q, backface_cull)
     c = _camera_scalars(cam)
     n, n_faces = valid.shape
     n_pix = cam.height * cam.width
@@ -156,17 +204,144 @@ def render_mu_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True):
     maxd = torch.zeros((n, n_pix), dtype=verts.dtype, device=verts.device)
     for s in range(0, n_faces, chunk):
         sl = slice(s, s + chunk)
-
-        def col(x):
-            return x[:, sl, None]
-
-        w0 = col(A0) * pu + col(B0) * pv + col(C0)
-        w1 = col(A1) * pu + col(B1) * pv + col(C1)
-        w2 = 1.0 - w0 - w1
-        inside = (w0 >= -_TOL) & (w1 >= -_TOL) & (w2 >= -_TOL) & col(valid)
-        d = col(IZ2) + col(DZ0) * w0 + col(DZ1) * w1
+        inside, d = inside_test([x[:, sl, None] for x in forms], pu, pv)
+        inside = inside & valid[:, sl, None]
         cand = torch.where(inside, d, torch.zeros_like(d))
         maxd = torch.maximum(maxd, cand.amax(dim=1))
+    return torch.where(maxd > 0, 1.0 / torch.where(maxd > 0, maxd, torch.ones_like(maxd)),
+                       torch.zeros_like(maxd))
+
+
+def triangle_boxes(verts, faces, cam: CvCamera, t, q, margin=True):
+    """Per (pose, face): the inclusive pixel box (c0, c1, r0, r1), int32
+    [N, F] each, clipped to the image; empty where c1 < c0 or r1 < r0.
+
+    With ``margin`` (the kernel's rule) the box holds every pixel at which the
+    fp32 inside test of ``render_mu_reference`` can pass. The test accepts
+    barycentric weights down to -1e-5 and rounds, so a pixel centre outside
+    the triangle's exact extent can pass it. With L the larger extent of the
+    triangle, M the largest coordinate magnitude of its corners and of the
+    viewport, and r = 2^-15 L M / |area| (512 unit roundoffs of the terms that
+    make a weight, relative to the area): the computed area is the exact one
+    within a factor 1 ± r/25, and each computed weight is the exact one
+    divided by that factor and moved by less than 0.06 r. For r < 6 a passing
+    pixel then lies within ext * (4e-5 + r) of the extent in each direction;
+    1e-6 M covers the rounding of the box's own bounds. Where r >= 6 (a
+    sliver whose area is rounding noise) the box is the whole image.
+
+    Without ``margin`` it is the box of the pixel centres inside the exact
+    extent: the work a z-buffer must do on these inputs."""
+    c = _camera_scalars(cam)
+    u, v, _ = project_vertices(verts, faces, cam, t, q)
+    gcx, gcy = c["gcx"], c["gcy"]
+    umin = torch.minimum(torch.minimum(u[0], u[1]), u[2])
+    umax = torch.maximum(torch.maximum(u[0], u[1]), u[2])
+    vmin = torch.minimum(torch.minimum(v[0], v[1]), v[2])
+    vmax = torch.maximum(torch.maximum(v[0], v[1]), v[2])
+    if margin:
+        area = _edges_and_area(u, v)[3]
+        ext_u, ext_v = umax - umin, vmax - vmin
+        big_l = torch.maximum(ext_u, ext_v)
+        big_m = torch.maximum(torch.maximum(umin.abs(), umax.abs()),
+                              torch.maximum(vmin.abs(), vmax.abs()))
+        big_m = torch.clamp(big_m, min=max(gcx, gcy) + 0.5)
+        r = _BOX_ERR * big_l * big_m / area.abs()
+        whole = ~(r < _BOX_WHOLE) | ~(big_l * big_m < 1e30)
+        m_u = ext_u * (_BOX_TOL + r) + _BOX_SLACK * big_m
+        m_v = ext_v * (_BOX_TOL + r) + _BOX_SLACK * big_m
+        lo_u, hi_u = (umin - m_u) + gcx, (umax + m_u) + gcx
+        lo_v, hi_v = (vmin - m_v) + gcy, (vmax + m_v) + gcy
+    else:
+        whole = torch.zeros_like(umin, dtype=torch.bool)
+        lo_u, hi_u, lo_v, hi_v = umin + gcx, umax + gcx, vmin + gcy, vmax + gcy
+
+    def bounds(lo, hi, size):
+        first = torch.where(whole, torch.zeros_like(lo), torch.ceil(lo).clamp(0, size))
+        last = torch.where(whole, torch.full_like(hi, size - 1),
+                           torch.floor(hi).clamp(-1, size - 1))
+        return first.to(torch.int32), last.to(torch.int32)
+
+    c0, c1 = bounds(lo_u, hi_u, cam.width)
+    r0, r1 = bounds(lo_v, hi_v, cam.height)
+    return c0, c1, r0, r1
+
+
+def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
+                pixel_budget=None):
+    """How one pose's block divides its shared memory and its work:
+    ``threads`` per block (512 where the poses are fewer than two per SM,
+    else 256); ``cache_verts`` (the projected vertices are kept in shared
+    memory, else each face projects its own corners); ``face_cap`` faces per
+    chunk (13 words each); a ``band_rows`` x ``band_cols`` tile of the
+    inverse-depth image; ``smem_bytes`` of dynamic shared memory in all.
+
+    The defaults keep every face and the whole image resident where they fit
+    in the 227 KB a block may take (less the kernel's static part), and cut
+    faces into chunks and the image into tiles where they do not.
+    ``face_budget`` and ``pixel_budget`` force smaller ones (for tests of the
+    chunked and banded paths)."""
+    threads = 256 if n_poses is None or n_poses > 264 else 512
+    for name, b in (("face_budget", face_budget), ("pixel_budget", pixel_budget)):
+        if b is not None and b < 1:
+            raise ValueError(f"{name} must be at least 1, got {b}")
+    cache_verts = 12 * n_verts <= _VERT_CACHE_BYTES
+    left = _SMEM_LIMIT - (12 * n_verts if cache_verts else 0)
+    face_cap = max(1, min(n_faces, face_budget or left // 2 // (4 * _FORM_WORDS)))
+    left -= 4 * _FORM_WORDS * face_cap
+    n_pixels = max(1, min(height * width, pixel_budget or left // 4))
+    band_cols = min(width, n_pixels)
+    band_rows = max(1, min(height, n_pixels // max(band_cols, 1)))
+    smem = 4 * ((3 * n_verts if cache_verts else 0) + _FORM_WORDS * face_cap
+                + band_rows * band_cols)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the plan needs {smem} bytes of shared memory, over {_SMEM_LIMIT}")
+    return {"threads": threads, "cache_verts": cache_verts, "face_cap": face_cap,
+            "band_rows": band_rows, "band_cols": band_cols, "smem_bytes": smem}
+
+
+def render_mu_binned_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True,
+                               face_budget=None, pixel_budget=None):
+    """Rendered depth μ [N, H*W] by the kernel's algorithm in plain PyTorch:
+    image tile by image tile and face chunk by face chunk (``launch_plan``),
+    each live triangle is tested only at the pixels of its box
+    (``triangle_boxes``) inside the tile, and a passing pixel's positive
+    inverse depth goes into the image by a scattered max. Same expressions as
+    ``render_mu_reference``, which tests every triangle at every pixel."""
+    valid, forms = triangle_forms(verts, faces, cam, t, q, backface_cull)
+    c0, c1, r0, r1 = (b.long() for b in triangle_boxes(verts, faces, cam, t, q))
+    c = _camera_scalars(cam)
+    n, n_faces = valid.shape
+    height, width = cam.height, cam.width
+    plan = launch_plan(verts.shape[0], n_faces, height, width, face_budget=face_budget,
+                       pixel_budget=pixel_budget)
+    maxd = torch.zeros(n * height * width, dtype=verts.dtype, device=verts.device)
+    for row0 in range(0, height, plan["band_rows"]):
+        row1 = min(row0 + plan["band_rows"], height) - 1
+        for col0 in range(0, width, plan["band_cols"]):
+            col1 = min(col0 + plan["band_cols"], width) - 1
+            for f0 in range(0, n_faces, plan["face_cap"]):
+                sl = slice(f0, f0 + plan["face_cap"])
+                bc0, br0 = c0[:, sl].clamp(min=col0), r0[:, sl].clamp(min=row0)
+                box_w = (c1[:, sl].clamp(max=col1) - bc0 + 1).clamp(min=0)
+                box_h = (r1[:, sl].clamp(max=row1) - br0 + 1).clamp(min=0)
+                count = torch.where(valid[:, sl], box_w * box_h, torch.zeros_like(box_w))
+                count = count.reshape(-1)
+                # one entry per (triangle, pixel of its box in this tile)
+                tri = torch.repeat_interleave(torch.arange(count.numel(), device=count.device),
+                                              count)
+                i = torch.arange(tri.numel(), device=tri.device) - (count.cumsum(0) - count)[tri]
+                bw = box_w.reshape(-1)[tri]
+                rr = i // bw
+                col = bc0.reshape(-1)[tri] + (i - rr * bw)
+                row = br0.reshape(-1)[tri] + rr
+                pu = col.to(verts.dtype) - c["gcx"]
+                pv = row.to(verts.dtype) - c["gcy"]
+                inside, d = inside_test([x[:, sl].reshape(-1)[tri] for x in forms], pu, pv)
+                hit = inside & (d > 0)
+                pose = tri // box_w.shape[1]
+                pixel = (pose * height + row) * width + col
+                maxd.scatter_reduce_(0, pixel[hit], d[hit], reduce="amax")
+    maxd = maxd.reshape(n, height * width)
     return torch.where(maxd > 0, 1.0 / torch.where(maxd > 0, maxd, torch.ones_like(maxd)),
                        torch.zeros_like(maxd))
 
@@ -198,36 +373,64 @@ def render_score_reference(verts, faces, cam: CvCamera, t, q, z, prior_o, params
     return ell, sum_o
 
 
-@functools.lru_cache(maxsize=None)
-def build_library():
-    """Compile (once per source version) and load the kernel library; returns
-    (ctypes library, nvcc's register/shared-memory report)."""
+def _compile(source: Path, extra_flags=()):
+    """Compile ``source`` with nvcc (once per version of its text and the
+    flags) and load it: (ctypes library, nvcc's report)."""
+    flags = [*_NVCC_FLAGS, *extra_flags]
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = source.read_bytes()
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _BUILD_DIR / f"librender_score_{tag}.so"
+    out = _BUILD_DIR / f"lib{source.stem}_{tag}.so"
     log = ""
     if not out.exists():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+        proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(source)],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
         log = proc.stderr
         os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    fn = lib.bpe_render_score
+    return ctypes.CDLL(str(out)), log
+
+
+@functools.lru_cache(maxsize=None)
+def build_library(phase_clocks=False):
+    """Compile (once per source version) and load the kernel library; returns
+    (ctypes library, nvcc's register/shared-memory report). ``phase_clocks``
+    builds the instrumented variant (``-DBPE_PHASE_CLOCKS``: every block adds
+    the cycles of each of its phases to a device array that
+    ``bpe_phase_clocks(out, reset)`` reads), a measuring aid that the
+    wrappers never load."""
+    lib, log = _compile(_SOURCE, ("-DBPE_PHASE_CLOCKS",) if phase_clocks else ())
+    if phase_clocks:
+        lib.bpe_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.bpe_phase_clocks.restype = ctypes.c_int
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    plan = [i] * len(_PLAN_ARGS)
+    fn = lib.bpe_render_score
     fn.argtypes = [p, i, p, i, p, p, i, p, p, i, i, f, f, f, f, f, f, f, i, i,
-                   f, f, f, f, f, p, p, p, p, p]
+                   f, f, f, f, f, p, p, p, p, p, *plan, p]
     fn.restype = ctypes.c_int
     fn = lib.bpe_render_depth
-    fn.argtypes = [p, i, p, i, p, p, i, i, i, f, f, f, f, f, f, f, i, p, p]
+    fn.argtypes = [p, i, p, i, p, p, i, i, i, f, f, f, f, f, f, f, i, p, *plan, p]
     fn.restype = ctypes.c_int
     return lib, log
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_plan_args(n_verts, n_faces, height, width, n_poses, tuning):
+    plan = launch_plan(n_verts, n_faces, height, width, n_poses, **dict(tuning))
+    return tuple(int(plan[k]) for k in _PLAN_ARGS)
+
+
+def _plan_args(verts, faces, cam, n_poses, tuning):
+    """The launch plan as the C entry points take it (cached by shape: a
+    chain launches the same shape thousands of times)."""
+    return _cached_plan_args(verts.shape[0], faces.shape[0], cam.height, cam.width, n_poses,
+                             tuple(sorted(tuning.items())) if tuning else ())
 
 
 def _check(name, x, dtype, shape):
@@ -256,21 +459,29 @@ def _check_mesh_and_poses(dev, verts, faces, t, q):
     _check("q", q, torch.float32, (t.shape[0], 4))
 
 
+@functools.lru_cache(maxsize=None)
+def _is_hopper(index):
+    return torch.cuda.get_device_capability(index) == (9, 0)
+
+
 def _check_hopper(dev, x, kernel):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if torch.cuda.get_device_capability(x.device) != (9, 0):
+    if not _is_hopper(x.device.index):
         raise RuntimeError(f"the {kernel} kernel is built for sm_90a (Hopper)")
 
 
-def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="cuda"):
+def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="cuda",
+                 tuning=None):
     """Depth render of N poses: μ [N, H, W] f32, 0 = background.
 
     verts [V, 3] f32, faces [F, 3] int32, t [N, 3] f32, q [N, 4] f32 (w, x, y,
     z); (H, W) = (cam.height, cam.width). Every tensor must lie on
     ``device``: CUDA launches the depth-only kernel, the CPU runs
     ``render_depth_reference``. ``render_depth.launches`` counts the kernel
-    launches."""
+    launches. ``tuning``: None, or ``launch_plan``'s ``face_budget`` and
+    ``pixel_budget`` for the kernel launch; they change how the work is
+    divided, never the image."""
     dev = resolve_device(device)
     _check_mesh_and_poses(dev, verts, faces, t, q)
     if dev.type == "cpu":
@@ -282,12 +493,13 @@ def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="
         return mu
     lib, _ = build_library()
     c = _camera_scalars(cam)
+    plan = _plan_args(verts, faces, cam, n, tuning)
     with torch.cuda.device(verts.device):
         err = lib.bpe_render_depth(
             verts.data_ptr(), verts.shape[0], faces.data_ptr(), faces.shape[0],
             t.data_ptr(), q.data_ptr(), n, cam.height, cam.width, c["fx"], c["fy"],
             c["s"], c["cx_off"], c["cy_off"], c["near"], c["far"],
-            int(bool(backface_cull)), mu.data_ptr(),
+            int(bool(backface_cull)), mu.data_ptr(), *plan,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_depth kernel launch failed: cudaError {err}")
@@ -300,7 +512,7 @@ render_depth.launches = 0
 
 def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
                  variant="association", backface_cull=True, hyper=None, device="cuda",
-                 return_mu=False):
+                 return_mu=False, tuning=None):
     """Fused transform + render + associate + score for N poses.
 
     verts [V, 3] f32, faces [F, 3] int32, t [N, 3] f32, q [N, 4] f32 (w, x, y, z),
@@ -314,7 +526,7 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
     ``render_score_reference``. ``render_score.launches`` counts the kernel
     launches and ``render_score.launches_by`` counts them by epilogue
     (``"+hyper"`` added for launches with a hyper row, ``"+mu"`` for launches
-    that write the image)."""
+    that write the image). ``tuning``: as for ``render_depth``."""
     dev = resolve_device(device)
     if variant not in SCORE_VARIANTS:
         raise ValueError(f"unknown score variant {variant!r}")
@@ -342,10 +554,17 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
     mu = (torch.empty((n, cam.height, cam.width), dtype=torch.float32, device=verts.device)
           if return_mu else None)
     out = (ell, sum_o, mu) if return_mu else (ell, sum_o)
+    # The score of an uncovered pixel does not depend on the pose: a large
+    # launch takes it once per pixel into this scratch (ell_px and o) with a
+    # small kernel of its own, which a small launch would not earn back.
+    background = (torch.empty(2 * cam.height * cam.width, dtype=torch.float32,
+                              device=verts.device)
+                  if n * cam.height * cam.width >= _BACKGROUND_MIN else None)
     if n == 0:
         return out
     lib, _ = build_library()
     c = _camera_scalars(cam)
+    plan = _plan_args(verts, faces, cam, n, tuning)
     with torch.cuda.device(verts.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.bpe_render_score(
@@ -357,7 +576,8 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
             params.pixel_theta, params.pixel_sigma, params.association_sigma,
             None if hyper is None else hyper.data_ptr(),
             ell.data_ptr(), sum_o.data_ptr(),
-            None if mu is None else mu.data_ptr(), stream)
+            None if mu is None else mu.data_ptr(),
+            None if background is None else background.data_ptr(), *plan, stream)
     if err != 0:
         raise RuntimeError(f"render_score kernel launch failed: cudaError {err}")
     render_score.launches += 1

@@ -3,6 +3,7 @@
 
     python3 chip_profile.py            # the benchmark chain
     python3 chip_profile.py tracking   # the particle filters
+    python3 chip_profile.py kernels    # both of the above, then the kernel alone
 
 The benchmark chain is bench.py's configuration through the port
 (chip_smoke.run_chain: monkey mesh, 30x30, 100 particles, tempered SMC-MH,
@@ -13,7 +14,21 @@ unprofiled for the wall time (after a warm-up run), then once under
 torch.profiler, and reports: device busy time (sum of CUDA kernel durations;
 one stream, so kernels do not overlap), the device's idle share of the
 profiled and of the unprofiled wall time, CUDA kernel launches per step (per
-frame for the filters), and device time by kernel name. Needs a CUDA device.
+frame for the filters), the render_score kernel's share of the busy time, and
+device time by kernel name.
+
+``kernels`` times ``csrc/render_score.cu`` alone at the shapes those paths
+give it (bench shape: 1280-face monkey, 30x30, 100 poses; tracking shape:
+256-face mesh, 80x60, 600 and 1250 poses): each row is first held against its
+plain version, then timed with CUDA events and the profiler beside its bound
+(chip_smoke.bound_ms), the share of the bound it reaches and, from a build
+with in-kernel phase clocks (no kernel profiler runs on a sealed machine),
+the share of its blocks' cycles in each phase; the rows the paths launch
+most are also timed with the background-score kernel forced off and on (in
+the order off, on, on, off: what the wrapper's threshold rests on). It runs the chain and the tracking profiles
+first, and last replays each row from a CUDA graph of 50 launches: the time per
+launch once the host's pacing (the Python wrapper, ~0.07-0.1 ms a call) is
+out of the way. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,12 +60,21 @@ def profiled(fn):
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
     busy_s = sum(v[0] for v in by_name.values()) * 1e-6
+    import chip_smoke
+
+    raster = [v for k, v in by_name.items() if chip_smoke.is_raster_kernel(k)]
+    raster_s = sum(v[0] for v in raster) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return wall, busy_s, sum(v[1] for v in by_name.values()), [
-        {"name": k[:90], "us": v[0], "count": v[1]} for k, v in top]
+        {"name": k[:90], "us": v[0], "count": v[1]} for k, v in top], {
+        "render_score_kernel_s": raster_s,
+        "render_score_kernel_launches": sum(v[1] for k, v in by_name.items()
+                                            if "render_score_kernel" in k),
+        "render_score_kernel_share_of_busy": raster_s / busy_s if busy_s else None}
 
 
-def report(result, wall, prof_wall, busy_s, n_kernels, n_units, unit, top):
+def report(result, wall, prof_wall, busy_s, n_kernels, n_units, unit, top, raster):
+    result.update(raster)
     result.update({
         "wall_s": wall, "profiled_wall_s": prof_wall, "device_busy_s": busy_s,
         "device_idle_share_profiled": 1.0 - busy_s / prof_wall if busy_s else None,
@@ -70,12 +94,12 @@ def profile_chain(card):
     n_steps, n_particles = 500, 100
     _, _, post, wall, evals, launches, _ = chip_smoke.run_chain("cuda", n_steps, n_particles)
     sampler = smc_mh(post.params, post)
-    prof_wall, busy_s, n_kernels, top = profiled(
+    prof_wall, busy_s, n_kernels, top, raster = profiled(
         lambda: sample_chain(3, post, sampler, n_steps, n_particles, device="cuda"))
     report({"card": card, "n_steps": n_steps, "n_particles": n_particles,
             "hypotheses_per_s": n_steps * n_particles / wall,
             "render_score_launches": launches, "likelihood_evaluations": evals},
-           wall, prof_wall, busy_s, n_kernels, n_steps, "step", top)
+           wall, prof_wall, busy_s, n_kernels, n_steps, "step", top, raster)
 
 
 def profile_tracking(card, n_frames=120, width=80, height=60):
@@ -105,10 +129,148 @@ def profile_tracking(card, n_frames=120, width=80, height=60):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        prof_wall, busy_s, n_kernels, top = profiled(run)
+        prof_wall, busy_s, n_kernels, top, raster = profiled(run)
         report({"card": card, "filter": kind, "n_particles": params.n_particles,
                 "frames": n_frames - 1, "fps": (n_frames - 1) / wall},
-               wall, prof_wall, busy_s, n_kernels, n_frames - 1, "frame", top)
+               wall, prof_wall, busy_s, n_kernels, n_frames - 1, "frame", top, raster)
+
+
+def graph_ms(fn, n=50, reps=20):
+    """Milliseconds per call with the host out of the way: ``n`` calls of
+    ``fn`` captured into one CUDA graph, replayed ``reps`` times between two
+    events. None (with the reason printed) if the capture fails."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (n * reps)
+    except Exception as e:  # a measurement aid: report, do not hide the other rows
+        print(f"graph capture failed: {type(e).__name__}: {e}", file=sys.stderr)
+        return None
+
+
+PHASES = ("vertices", "faces", "raster", "epilogue")
+
+
+def phase_shares(fn, n=20):
+    """Where the kernel's blocks spend their cycles: ``fn`` run ``n`` times on
+    the library built with phase clocks, the share of each phase in the sum
+    of the blocks' cycles, and the mean cycles per block and launch."""
+    import ctypes
+
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
+
+    lib, _ = cuda_raster.build_library(phase_clocks=True)
+    plain = cuda_raster.build_library
+    clocks = (ctypes.c_ulonglong * len(PHASES))()
+    cuda_raster.build_library = lambda: (lib, "")  # the wrappers' launches go to this build
+    try:
+        fn()
+        torch.cuda.synchronize()
+        assert lib.bpe_phase_clocks(clocks, 1) == 0
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        assert lib.bpe_phase_clocks(clocks, 1) == 0
+    finally:
+        cuda_raster.build_library = plain
+    total = sum(clocks) or 1
+    return {"share": {p: round(c / total, 4) for p, c in zip(PHASES, clocks)},
+            "block_cycles_per_launch": total / n}
+
+
+def kernel_rows(card, graphs=False):
+    """The kernel alone at the main paths' shapes: checked against the plain
+    version, then its time beside its bound, and the most launched rows with
+    and without the background-score kernel. ``graphs``: only the time per launch of each
+    row replayed from a CUDA graph (no host pacing)."""
+    import torch
+
+    import chip_smoke
+    from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        SCORE_VARIANTS,
+        launch_plan,
+        render_depth,
+        render_depth_reference,
+        render_score,
+        render_score_reference,
+    )
+
+    dev = "cuda"
+    sync = torch.cuda.synchronize
+    bench = chip_smoke.kernel_inputs(dev, 30, 30, "monkey")
+    track = chip_smoke.tracking_kernel_inputs(dev)
+    track_big = chip_smoke.tracking_kernel_inputs(dev, n_poses=1250)
+    rows = [("render_score[association] bench shape, 100 poses", bench, "association", False),
+            ("render_score[fixed_o] tracking shape, 600 poses", track, "simple", False),
+            ("render_score[fixed_o] tracking shape, 1250 poses", track_big, "simple", False),
+            ("render_score[fixed_o+mu] tracking shape, 600 poses", track, "simple", True),
+            ("render_depth tracking shape, 600 poses", track, None, True),
+            *((f"render_score[{e}] bench shape, 100 poses", bench, v, False)
+              for v, e in SCORE_VARIANTS.items()
+              if v in ("simple", "smooth", "no_exp", "no_exp_association"))]
+    ok = True
+    for name, args, variant, mu in rows:
+        verts, faces, cam, t = args[:4]
+        plan = launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width, t.shape[0])
+        if variant is None:
+            def run(args=args):
+                return (render_depth(*args[:5], device=dev),)
+
+            ref = (render_depth_reference(*args[:5]),)
+            epilogue = "depth"
+        else:
+            def run(args=args, variant=variant, mu=mu):
+                return render_score(*args, variant=variant, device=dev, return_mu=mu)
+
+            ref = render_score_reference(*args, variant=variant, return_mu=mu)
+            epilogue = SCORE_VARIANTS[variant]
+        if graphs:
+            print(json.dumps({"row": name, "card": card, "graph_ms_per_launch": graph_ms(run)}))
+            continue
+        out = run()
+        sync()
+        image_equal = bool(torch.equal(out[-1], ref[-1])) if mu else None
+        sums_close = all(bool(torch.allclose(a, b, **chip_smoke.TOL))
+                         for a, b in zip(out[:2], ref[:2])) if variant else None
+        row = {"row": name, "card": card, "plan": plan, "image_bitwise_equal": image_equal,
+               "sums_within_tolerance": sums_close}
+        ok = ok and image_equal is not False and sums_close is not False
+        b_ms, b_by, _, pairs = chip_smoke.bound_ms(args, epilogue, mu=mu and variant)
+        ms = chip_smoke.time_ms(run, 200, sync)
+        dev_ms = chip_smoke.device_ms(run, 50)
+        row.update({"ms": ms, "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "share_of_bound": b_ms / dev_ms if dev_ms else None,
+                    "share_of_bound_paced": b_ms / ms, "live_pairs": pairs,
+                    "phases": phase_shares(run)})
+        print(json.dumps(row))
+        if name in (rows[0][0], rows[1][0], rows[2][0]):
+            threshold, times = cuda_raster._BACKGROUND_MIN, []
+            try:
+                for forced in (2**62, 0, 0, 2**62):  # off, on, on, off
+                    cuda_raster._BACKGROUND_MIN = forced
+                    times.append(chip_smoke.device_ms(run, 200))
+            finally:
+                cuda_raster._BACKGROUND_MIN = threshold
+            print(json.dumps({"row": name, "card": card,
+                              "device_ms_background_off_on_on_off": times}))
+    return ok
 
 
 def main() -> int:
@@ -123,6 +285,16 @@ def main() -> int:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     if sys.argv[1:] == ["tracking"]:
         profile_tracking(card)
+    elif sys.argv[1:] == ["kernels"]:
+        # the two paths first, in a process that has not yet profiled
+        # anything or loaded the build with phase clocks
+        profile_chain(card)
+        profile_tracking(card)
+        if not kernel_rows(card):
+            print("chip_profile: a kernel row disagrees with its plain version",
+                  file=sys.stderr)
+            return 1
+        kernel_rows(card, graphs=True)
     elif not sys.argv[1:]:
         profile_chain(card)
     else:

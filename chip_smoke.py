@@ -39,7 +39,15 @@ Phases (each prints its results; any failure exits non-zero):
      plain version on the CPU; frames per second are printed, not gated.
 Phase 2 also holds ``render_depth`` and ``render_score(return_mu=True)``
 against their plain versions and each other, and times them at the tracking
-shape (256-face mesh, 80x60, 600 poses).
+shape (256-face mesh, 80x60, 600 poses); launches the kernel with forced
+small face chunks and forced small row bands, which must leave the image,
+ell and sum_o bitwise equal to the unforced launch;
+runs the same poses with and without the background-score kernel (bitwise);
+renders 8 poses at 640x480 (an image that takes several shared-memory tiles)
+and a 20480-face mesh at 160x120 (faces in chunks, vertices uncached) against
+the plain version, the depth-only kernel and the score kernels with and
+without the image, depth bitwise; and prints for every timed row the share of its
+bound that it reaches.
 The second-to-last line is a JSON object describing the kernels; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -183,8 +191,10 @@ def time_ms(fn, n, sync):
 
 
 def device_ms(fn, n):
-    """Mean device time (ms) of the render_score kernels that ``n`` calls of
-    ``fn`` launch, from torch.profiler; None if it records no such kernel."""
+    """Mean device time (ms) per call of the kernels of csrc/render_score.cu
+    that ``n`` calls of ``fn`` launch (the poses' kernel and, for a score,
+    the small background kernel before it), from torch.profiler; None if it
+    records no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,8 +205,13 @@ def device_ms(fn, n):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and "render_score_kernel" in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+          if e.device_type == torch.autograd.DeviceType.CUDA and is_raster_kernel(e.name)]
+    return sum(us) / n / 1e3 if us else None
+
+
+def is_raster_kernel(name):
+    """Whether a profiled CUDA kernel is one of csrc/render_score.cu."""
+    return "render_score_kernel" in name or "score_background_kernel" in name
 
 
 def live_pairs(verts, faces, cam, t, q):
@@ -244,6 +259,152 @@ def bound_ms(args, epilogue="association", hyper=False, mu=False):
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops,
             pairs)
+
+
+def share_of_bound(b_ms, ms, dev_ms):
+    """The share of its bound a kernel reaches, by its device time and by the
+    pace of back-to-back launches through the wrapper."""
+    by_device = f"{100 * b_ms / dev_ms:.2f} %" if dev_ms else "not measured"
+    return (f"share of bound {by_device} by device time, {100 * b_ms / ms:.2f} % by "
+            f"launch-paced time")
+
+
+def forced_plan_check(args, label, device, failures):
+    """The kernel with forced small face chunks, row bands and both: image,
+    ell and sum_o must equal the unforced launch bit for bit (tiles narrower
+    than the image keep the image bitwise and the sums within rounding)."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        launch_plan,
+        render_depth,
+        render_score,
+    )
+
+    verts, faces, cam, t = args[:4]
+    width, n_faces = cam.width, faces.shape[0]
+    base = render_score(*args, variant="simple", device=device, return_mu=True)
+    base_assoc = render_score(*args, variant="association", device=device)
+    base_depth = render_depth(*args[:5], device=device)
+    for tuning in ({"face_budget": max(1, n_faces // 3)}, {"pixel_budget": 7 * width},
+                   {"face_budget": 33, "pixel_budget": 3 * width},
+                   {"pixel_budget": width // 2 + 3}):
+        plan = launch_plan(verts.shape[0], n_faces, cam.height, width, t.shape[0], **tuning)
+        narrow = plan["band_cols"] < width
+        out = render_score(*args, variant="simple", device=device, return_mu=True, tuning=tuning)
+        assoc = render_score(*args, variant="association", device=device, tuning=tuning)
+        depth = render_depth(*args[:5], device=device, tuning=tuning)
+        torch.cuda.synchronize()
+        images = bool(torch.equal(out[2], base[2]) and torch.equal(depth, base_depth))
+        sums = bool(all(torch.equal(a, b) for a, b in zip((*out[:2], *assoc),
+                                                          (*base[:2], *base_assoc))))
+        close = bool(all(torch.allclose(a, b, rtol=1e-5, atol=1e-3)
+                         for a, b in zip((*out[:2], *assoc), (*base[:2], *base_assoc))))
+        print(f"phase 2 forced plan at {label} {json.dumps(tuning)} -> faces per chunk "
+              f"{plan['face_cap']} of {n_faces}, tile {plan['band_rows']}x{plan['band_cols']}, "
+              f"threads {plan['threads']}: images bitwise equal {images}, ell and sum_o "
+              f"bitwise equal {sums}" + (" (narrow tiles: within rounding "
+                                         f"{close})" if narrow else ""))
+        if not images or not (close if narrow else sums):
+            failures.append(f"forced plan {tuning} at {label}")
+
+
+def background_path_check(args, device, failures):
+    """A launch of a million pixel evaluations or more takes the score of
+    uncovered pixels once, in a small kernel of its own; a smaller launch
+    evaluates it in the poses' blocks. The same poses through both (all at
+    once, and in batches below that size) must give the same bits."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
+
+    verts, faces, cam, t, q = args[:5]
+    n, n_pix = t.shape[0], cam.height * cam.width
+    batch = max(1, (cuda_raster._BACKGROUND_MIN - 1) // n_pix)
+    if not batch * n_pix < cuda_raster._BACKGROUND_MIN <= n * n_pix:
+        failures.append("background path check: the shapes do not straddle the threshold")
+        return
+    for variant in ("simple", "association", "smooth"):
+        whole = cuda_raster.render_score(*args, variant=variant, device=device)
+        parts = [cuda_raster.render_score(verts, faces, cam, t[i:i + batch].contiguous(),
+                                          q[i:i + batch].contiguous(), *args[5:],
+                                          variant=variant, device=device)
+                 for i in range(0, n, batch)]
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(whole[k], torch.cat([p[k] for p in parts]))) for k in (0, 1))
+        print(f"phase 2 background score, {variant}: {n} poses in one launch (own kernel) vs "
+              f"batches of {batch} (in the blocks): ell and sum_o bitwise equal {same}")
+        if not same:
+            failures.append(f"background score path differs ({variant})")
+
+
+def no_size_limit_check(device, failures, verts, faces):
+    """Shapes that do not fit a block's shared memory at once: 8 poses of the
+    1280-face mesh at 640x480 (the image in row bands), and a 20480-face
+    icosphere at 160x120 (faces in chunks, vertices projected per face),
+    each against the plain version: coverage identical, depth bitwise, from
+    the depth-only kernel and from a score kernel that writes the image; the
+    sums of three score epilogues (whose blocks hold static shared memory
+    beside the plan's) within the kernel-vs-plain tolerance."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import quaternions as quat
+    from bayesianposeestimation.jl_tpu_torch.camera import CvCamera
+    from bayesianposeestimation.jl_tpu_torch.models.fused import mesh_tensors
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        launch_plan,
+        render_depth,
+        render_depth_reference,
+        render_score,
+        render_score_reference,
+    )
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+    from bayesianposeestimation.jl_tpu_torch.utils import mesh_io
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    n = 8
+    q = quat.rand_quaternion(gen, (n,)).contiguous()
+    t = (torch.tensor([0.0, 0.0, 0.3], device=device)
+         + 0.02 * torch.randn((n, 3), generator=gen, device=device)).contiguous()
+    sphere = mesh_io.icosphere_mesh(0.1, 5)
+    cases = (("1280 faces at 640x480", verts, faces, 640, 480),
+             (f"{len(sphere.faces)} faces at 160x120",
+              *mesh_tensors(sphere.vertices, sphere.faces, device), 160, 120))
+    for label, v, f, w, h in cases:
+        cam = CvCamera(width=w, height=h, f_x=0.94 * w, f_y=0.94 * w, c_x=(w - 1) / 2,
+                       c_y=(h - 1) / 2, near=0.01, far=10.0)
+        plan = launch_plan(v.shape[0], f.shape[0], h, w, n)
+        t0 = time.perf_counter()
+        mu = render_depth(v, f, cam, t, q, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref = render_depth_reference(v, f, cam, t, q)
+        coverage = bool(torch.equal(mu > 0, ref > 0))
+        bitwise = bool(torch.equal(mu, ref))
+        print(f"phase 2 no size limit, {label}, {n} poses: faces per chunk {plan['face_cap']}, "
+              f"vertices cached {plan['cache_verts']}, tile {plan['band_rows']}x"
+              f"{plan['band_cols']}, {plan['smem_bytes']} B of shared memory; covered "
+              f"{float((ref > 0).float().mean()):.3f}; coverage identical {coverage}, depth "
+              f"bitwise equal {bitwise}; one launch {dt * 1e3:.3f} ms")
+        if not (coverage and bitwise and float((ref > 0).float().mean()) > 0.02):
+            failures.append(f"no size limit: {label}")
+        # the score kernels at the same size, observing the first pose's image
+        z = torch.where(ref[0] > 0, ref[0], torch.full_like(ref[0], torch.inf))
+        score_args = (v, f, cam, t, q, z, 0.7, Parameters(width=w, height=h, device=str(device)))
+        for variant, with_mu in (("simple", True), ("association", False), ("smooth", False)):
+            out = render_score(*score_args, variant=variant, device=device, return_mu=with_mu)
+            want = render_score_reference(*score_args, variant=variant)
+            torch.cuda.synchronize()
+            image = bool(torch.equal(out[2], ref)) if with_mu else None
+            sums = all(bool(torch.isfinite(a).all() and torch.allclose(a, b, **TOL))
+                       for a, b in zip(out[:2], want))
+            err = max(float((a - b).abs().max()) for a, b in zip(out[:2], want))
+            print(f"phase 2 no size limit, {label}, render_score {variant}"
+                  + (f" with the image: image bitwise equal {image}" if with_mu else "")
+                  + f": ell and sum_o within tolerance {sums} (max |d| {err:.5f}, ell mean "
+                  f"{float(want[0].mean()):.1f})")
+            if image is False or not sums:
+                failures.append(f"no size limit: {label}, render_score {variant}")
 
 
 def run_chain(device, n_steps=500, n_particles=100, seed=1):
@@ -849,6 +1010,11 @@ def main() -> int:
 
     dev = "cuda"
     failures = []
+    t_start = time.perf_counter()
+
+    def phase_done(n):
+        print(f"phase {n} done {time.perf_counter() - t_start:.1f} s after the start")
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -863,6 +1029,7 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
+    phase_done(1)
 
     # -- phase 2: kernel against its plain version -------------------------
     shapes = [("bench monkey 30x30", 30, 30, "monkey"), ("monkey 80x60", 80, 60, "monkey"),
@@ -943,7 +1110,7 @@ def main() -> int:
         print(f"phase 2 timing {name} ({variant}) at the bench shape (100 poses): kernel "
               f"{ms:.4f} ms (CUDA events over 200 calls), device {dev_ms} ms (profiler), "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, {ops / 1e6:.3f} M ops, "
-              f"{pairs} live triangle-pixel pairs) on {smi}")
+              f"{pairs} live triangle-pixel pairs), {share_of_bound(b_ms, ms, dev_ms)} on {smi}")
 
     # the depth-image kernels: render_depth and render_score(return_mu=True)
     # against their plain versions and each other, at the three shapes above
@@ -972,6 +1139,20 @@ def main() -> int:
             print(f"phase 2 render_depth rejected {name}: {e}")
     if (render_depth.launches, render_score.launches) != before:
         failures.append("a rejected render_depth call launched a kernel")
+
+    # the launch plan never changes the result; no mesh or image size limit
+    t0 = time.perf_counter()
+    forced_plan_check(track_args, "the tracking shape", dev, failures)
+    forced_plan_check(flagship, "the bench shape", dev, failures)
+    background_path_check(track_args, dev, failures)
+    no_size_limit_check(dev, failures, flagship[0], flagship[1])
+    for bad in ({"face_budget": 0}, {"pixel_budget": -1}, {"threads": 100}):
+        try:
+            render_depth(*flagship[:5], device=dev, tuning=bad)
+            failures.append(f"render_depth accepted tuning {bad}")
+        except (TypeError, ValueError) as e:
+            print(f"phase 2 rejected tuning {bad}: {e}")
+    print(f"phase 2 launch-plan and size checks took {time.perf_counter() - t0:.1f} s")
 
     # timing at the tracking shape: the depth-only kernel, the fixed-o score
     # with and without the image, and the fixed-o score at the bootstrap
@@ -1002,7 +1183,9 @@ def main() -> int:
         print(f"phase 2 timing {name} at the tracking shape (256 faces, 80x60, "
               f"{args[3].shape[0]} poses): kernel {ms:.4f} ms (CUDA events over 100 calls), "
               f"device {dev_ms} ms (profiler), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
-              f"({b_by}, {ops / 1e6:.3f} M ops, {pairs} live triangle-pixel pairs) on {smi}")
+              f"({b_by}, {ops / 1e6:.3f} M ops, {pairs} live triangle-pixel pairs), "
+              f"{share_of_bound(b_ms, ms, dev_ms)} on {smi}")
+    phase_done(2)
 
     # -- phase 3: the benchmark chain ---------------------------------------
     n_steps, n_particles = 500, 100
@@ -1015,15 +1198,19 @@ def main() -> int:
         failures.append(f"launches {launches} vs evaluations {evals}")
     if not res["density_vs_plain_ok"]:
         failures.append("chain densities vs plain version")
+    phase_done(3)
 
     # -- phase 4: the per-image sweep ----------------------------------------
     sweep_launches = per_image_sweep(dev, failures)
+    phase_done(4)
 
     # -- phase 5: the depth-layout kernel check -------------------------------
     layout_launches = depth_layout_check(dev, failures)
+    phase_done(5)
 
     # -- phase 6: tracking ------------------------------------------------------
     track_launches = tracking_phase(dev, failures, smi)
+    phase_done(6)
 
     if failures:
         print(f"chip_smoke FAILED: {failures}", file=sys.stderr)
@@ -1040,7 +1227,8 @@ def main() -> int:
             "replaces": f"{PALLAS}:938" if name.endswith("+hyper") else f"{PALLAS}:937",
             "launches": n_launch, "path": path, "max_abs_err": worst[name], "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+            "share_of_bound": b_ms / dev_ms if dev_ms else None,
+            "share_of_bound_paced": b_ms / ms, "library_ms": None})
     for name, n_launch, path, replaces, err in (
             ("render_depth", track_launches.get("render_depth", 0),
              "phase 6 stream synthesis of the tracking script", f"{PALLAS}:930",
@@ -1055,7 +1243,8 @@ def main() -> int:
             "name": shown, "route": "cuda", "source": f"{PKG}/csrc/render_score.cu",
             "replaces": replaces, "launches": n_launch, "path": path, "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None})
+            "bound_by": b_by, "share_of_bound": b_ms / dev_ms if dev_ms else None,
+            "share_of_bound_paced": b_ms / ms, "library_ms": None})
     for e in entries:
         if e["launches"] <= 0:
             print(f"chip_smoke FAILED: {e['name']} was not launched on its path",

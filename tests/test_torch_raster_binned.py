@@ -1,0 +1,323 @@
+"""The binned raster algorithm of the CUDA kernel, in plain PyTorch on the CPU.
+
+``jl_tpu_torch/csrc/render_score.cu`` tests a live triangle only at the
+pixels of a bounding box, keeps a pose's faces in chunks and its image in
+tiles of shared memory. Its box rule (``triangle_boxes``), its shared-memory
+plan (``launch_plan``) and the algorithm itself
+(``render_mu_binned_reference``) live in ``ops/cuda_raster.py`` and are held
+here against ``render_mu_reference``, which tests every live triangle at every
+pixel:
+
+* the box never loses a pixel: every (triangle, pixel) pair that passes the
+  fp32 inside test lies inside the triangle's box;
+* the binned algorithm gives the same image bit for bit, also with forced
+  small face chunks and image tiles;
+* the box without its margin counts the work ``chip_smoke.live_pairs`` counts.
+
+The kernel itself needs an H100; ``chip_smoke.py`` holds it against the same
+plain versions there (bitwise-equal images).
+"""
+
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from bayesianposeestimation.jl_tpu.camera import CvCamera as JCam
+from bayesianposeestimation.jl_tpu.ops.pallas_raster import pallas_render_depth
+from bayesianposeestimation.jl_tpu_torch.camera import CvCamera
+from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
+from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+    inside_test,
+    launch_plan,
+    render_depth,
+    render_mu_binned_reference,
+    render_mu_reference,
+    render_score,
+    triangle_boxes,
+    triangle_forms,
+)
+from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+from bayesianposeestimation.jl_tpu_torch.utils import mesh_io
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (imports nothing heavy until a phase runs)
+
+SHAPES = [(16, 16), (30, 30), (80, 60), (23, 37)]
+MESHES = ["cube", "monkey"]
+
+
+def _camera(w, h, f):
+    return CvCamera(width=w, height=h, f_x=f, f_y=f, c_x=(w - 1) / 2, c_y=(h - 1) / 2,
+                    near=0.01, far=10.0)
+
+
+def _scene(mesh_name, w, h, n=4, seed=0):
+    """Random rotations of the mesh half a metre away, spanning about a third
+    of the image; the last pose hangs over the image's edge."""
+    rng = np.random.default_rng(seed)
+    mesh = mesh_io.cube_mesh(0.1) if mesh_name == "cube" else mesh_io.monkey_mesh(0.18)
+    cam = _camera(w, h, 1.1 * max(w, h))
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t = (np.array([0.0, 0.0, 0.5]) + 0.02 * rng.normal(size=(n, 3))).astype(np.float32)
+    t[-1, 0] += 0.2  # partly off the viewport
+    return (torch.as_tensor(mesh.vertices), torch.as_tensor(mesh.faces), cam,
+            torch.as_tensor(t), torch.as_tensor(q))
+
+
+def _passing_pairs_outside_box(args, backface_cull):
+    """(pairs that pass the inside test, those of them outside the box, pairs
+    that pass outside the box without its margin)."""
+    cam = args[2]
+    valid, forms = triangle_forms(*args, backface_cull=backface_cull)
+    idx = torch.arange(cam.height * cam.width)
+    col, row = idx % cam.width, idx // cam.width
+    pu = col.float() - (cam.width - 1) / 2
+    pv = row.float() - (cam.height - 1) / 2
+    inside, _ = inside_test([x[:, :, None] for x in forms], pu, pv)
+    inside &= valid[:, :, None]
+
+    def in_box(box):
+        c0, c1, r0, r1 = (b[:, :, None] for b in box)
+        return (col >= c0) & (col <= c1) & (row >= r0) & (row <= r1)
+
+    lost = inside & ~in_box(triangle_boxes(*args))
+    beyond_extent = inside & ~in_box(triangle_boxes(*args, margin=False))
+    return int(inside.sum()), int(lost.sum()), int(beyond_extent.sum())
+
+
+@pytest.mark.parametrize("backface_cull", [True, False])
+@pytest.mark.parametrize("w,h", SHAPES)
+@pytest.mark.parametrize("mesh_name", MESHES)
+def test_box_holds_every_passing_pixel(mesh_name, w, h, backface_cull):
+    args = _scene(mesh_name, w, h, seed=w + h)
+    n_inside, n_lost, _ = _passing_pairs_outside_box(args, backface_cull)
+    assert n_inside > 50  # the object is in view
+    assert n_lost == 0
+
+
+@pytest.mark.parametrize("backface_cull", [True, False])
+@pytest.mark.parametrize("w,h", SHAPES)
+@pytest.mark.parametrize("mesh_name", MESHES)
+def test_binned_equals_all_pixels_bitwise(mesh_name, w, h, backface_cull):
+    args = _scene(mesh_name, w, h, seed=w + h)
+    mu = render_mu_reference(*args, backface_cull=backface_cull)
+    assert float((mu > 0).float().mean()) > 0.03
+    binned = render_mu_binned_reference(*args, backface_cull=backface_cull)
+    assert torch.equal(binned, mu)
+
+
+SLIVER_SCALES = [1e-9, 1e-6, 1e-4, 1e-2, 0.3]
+
+
+def _soup(seed, sliver_scale, depth_mode, w, h, n_tri=24):
+    """Triangles drawn straight in pixel coordinates (a camera of focal length
+    1 looking at z = 1 maps x, y to u, v exactly): corners exactly on pixel
+    centres, inside the image, well outside it, far away; a third of the
+    triangles are slivers (the third corner a hair off the line through the
+    other two)."""
+    gc = np.array([(w - 1) / 2, (h - 1) / 2])
+    rng = np.random.default_rng(seed)
+
+    def corners(n):
+        mode = rng.integers(0, 4, size=(n, 1))
+        on_centre = np.stack([rng.integers(-2, w + 2, size=n),
+                              rng.integers(-2, h + 2, size=n)], 1) - gc
+        within = rng.uniform(-0.5, 0.5, size=(n, 2)) * [w, h]
+        around = rng.uniform(-3, 3, size=(n, 2)) * [w, h]
+        far = rng.normal(size=(n, 2)) * 1e4
+        return np.select([mode == 0, mode == 1, mode == 2], [on_centre, within, around], far)
+
+    p0, p1, p2 = corners(n_tri), corners(n_tri), corners(n_tri)
+    d = p1 - p0
+    normal = np.stack([-d[:, 1], d[:, 0]], 1) / (np.linalg.norm(d, axis=1, keepdims=True) + 1e-12)
+    on_line = p0 + rng.uniform(-0.5, 1.5, size=(n_tri, 1)) * d
+    off = sliver_scale * rng.uniform(0.1, 1, size=(n_tri, 1)) * rng.choice([-1, 1], (n_tri, 1))
+    is_sliver = rng.random((n_tri, 1)) < 1 / 3
+    p2 = np.where(is_sliver, on_line + off * normal, p2)
+    z = np.ones((n_tri, 3))
+    if depth_mode == "mixed":
+        z = np.where(rng.random((n_tri, 3)) < 0.5, 1.0, rng.uniform(0.3, 5.0, size=(n_tri, 3)))
+    xyz = np.concatenate([np.stack([p0, p1, p2], 1) * z[..., None], z[..., None]], -1)
+    verts = torch.as_tensor(xyz.reshape(-1, 3).astype(np.float32))
+    faces = torch.arange(3 * n_tri, dtype=torch.int32).reshape(-1, 3)
+    return (verts, faces, _camera(w, h, 1.0), torch.zeros(1, 3),
+            torch.tensor([[1.0, 0.0, 0.0, 0.0]]))
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(st.integers(0, 2**32 - 1), st.sampled_from(SLIVER_SCALES),
+       st.sampled_from(["flat", "mixed"]), st.sampled_from(SHAPES + [(31, 30)]))
+def test_box_and_binned_on_slivers_pixel_centres_and_off_viewport(seed, sliver_scale,
+                                                                  depth_mode, shape):
+    args = _soup(seed, sliver_scale, depth_mode, *shape)
+    _, n_lost, _ = _passing_pairs_outside_box(args, backface_cull=False)
+    assert n_lost == 0
+    mu = render_mu_reference(*args, backface_cull=False)
+    assert torch.equal(render_mu_binned_reference(*args, backface_cull=False), mu)
+    assert torch.equal(render_mu_binned_reference(*args, backface_cull=False, face_budget=5,
+                                                  pixel_budget=3 * shape[0] + 1), mu)
+
+
+def test_margin_is_needed_and_vertices_on_centres_are_kept():
+    """The soup does reach pixels that pass the test outside the exact
+    extent (so the margin is not idle), and a triangle whose corners sit
+    exactly on pixel centres keeps those pixels."""
+    beyond = 0
+    for seed in range(40):
+        args = _soup(seed, SLIVER_SCALES[seed % 5], ["flat", "mixed"][seed % 2], 30, 30,
+                     n_tri=200)
+        n_inside, n_lost, n_beyond = _passing_pairs_outside_box(args, backface_cull=False)
+        assert n_lost == 0
+        beyond += n_beyond
+    assert beyond > 0
+    w = h = 9  # pixel centres at integer grid-centred coordinates
+    verts = torch.tensor([[-2.0, -2.0, 1.0], [2.0, -2.0, 1.0], [-2.0, 2.0, 1.0]])
+    faces = torch.tensor([[0, 2, 1], [0, 1, 2]], dtype=torch.int32)
+    args = (verts, faces, _camera(w, h, 1.0), torch.zeros(1, 3),
+            torch.tensor([[1.0, 0.0, 0.0, 0.0]]))
+    c0, c1, r0, r1 = triangle_boxes(*args)
+    assert (c0.tolist(), c1.tolist(), r0.tolist(), r1.tolist()) == (
+        [[2, 2]], [[6, 6]], [[2, 2]], [[6, 6]])
+    mu = render_mu_binned_reference(*args).reshape(h, w)
+    assert torch.equal(mu, render_mu_reference(*args).reshape(h, w))
+    assert float(mu[2, 2]) == 1.0 and float(mu[2, 6]) == 1.0 and float(mu[6, 2]) == 1.0
+    assert float(mu[6, 6]) == 0.0 and int((mu > 0).sum()) == 15
+
+
+def test_unwidened_boxes_count_live_pairs_on_a_hand_checked_cube():
+    """A 0.1 m cube facing the camera at 1 m, focal length 100 px, 16x16:
+    only the front face (z = 0.95) is live; it spans ±5.263 px around the
+    centre 7.5, so columns and rows 3..12: two triangles whose boxes are
+    both that 10x10 square, 200 pairs."""
+    mesh = mesh_io.cube_mesh(0.1)
+    args = (torch.as_tensor(mesh.vertices), torch.as_tensor(mesh.faces), _camera(16, 16, 100.0),
+            torch.tensor([[0.0, 0.0, 1.0]]), torch.tensor([[1.0, 0.0, 0.0, 0.0]]))
+    valid, _ = triangle_forms(*args)
+    assert int(valid.sum()) == 2
+    c0, c1, r0, r1 = triangle_boxes(*args, margin=False)
+    for b, expect in ((c0, 3), (c1, 12), (r0, 3), (r1, 12)):
+        assert b[valid].tolist() == [expect, expect]
+    area = (c1 - c0 + 1).clamp(min=0) * (r1 - r0 + 1).clamp(min=0)
+    assert int(area[valid].sum()) == 200
+    assert chip_smoke.live_pairs(*args) == 200
+    # the margin adds nothing here: the nearest outside centre is 0.26 px away
+    assert all(torch.equal(a, b) for a, b in zip(triangle_boxes(*args), (c0, c1, r0, r1)))
+
+
+@pytest.mark.parametrize("mesh_name,w,h", [("monkey", 30, 30), ("cube", 80, 60),
+                                           ("monkey", 23, 37)])
+def test_unwidened_boxes_equal_live_pairs(mesh_name, w, h):
+    args = _scene(mesh_name, w, h, seed=5)
+    valid, _ = triangle_forms(*args)
+    c0, c1, r0, r1 = triangle_boxes(*args, margin=False)
+    area = (c1 - c0 + 1).clamp(min=0) * (r1 - r0 + 1).clamp(min=0)
+    assert int(area[valid].sum()) == chip_smoke.live_pairs(*args) > 0
+
+
+@pytest.mark.parametrize("mesh_name,w,h,face_budget,pixel_budget", [
+    ("cube", 23, 37, 7, None), ("cube", 23, 37, None, 50), ("cube", 23, 37, 5, 100),
+    ("cube", 23, 37, 1, 1), ("cube", 23, 37, 11, 23), ("monkey", 80, 60, 100, None),
+    ("monkey", 80, 60, None, 400), ("monkey", 80, 60, 300, 81), ("monkey", 80, 60, 64, 160),
+    ("monkey", 80, 60, 1279, 4799)])
+def test_chunked_faces_and_banded_rows_give_the_same_image(mesh_name, w, h, face_budget,
+                                                           pixel_budget):
+    args = _scene(mesh_name, w, h, n=2, seed=9)
+    plan = launch_plan(args[0].shape[0], args[1].shape[0], h, w, face_budget=face_budget,
+                       pixel_budget=pixel_budget)
+    assert plan["face_cap"] < args[1].shape[0] or plan["band_rows"] * plan["band_cols"] < w * h
+    mu = render_mu_reference(*args)
+    assert torch.equal(render_mu_binned_reference(*args, face_budget=face_budget,
+                                                  pixel_budget=pixel_budget), mu)
+
+
+@pytest.mark.parametrize("n_verts,n_faces,h,w,n_poses", [
+    (642, 1280, 30, 30, 100), (130, 256, 60, 80, 600), (130, 256, 60, 80, 1250),
+    (642, 1280, 480, 640, 8), (8, 12, 16, 16, 1), (100_000, 200_000, 1080, 1920, 4),
+    (3, 1, 1, 100_000, 2), (0, 0, 4, 4, 1)])
+def test_launch_plan_fits_shared_memory_and_covers_the_image(n_verts, n_faces, h, w, n_poses):
+    plan = launch_plan(n_verts, n_faces, h, w, n_poses)
+    words = ((3 * n_verts if plan["cache_verts"] else 0) + 13 * plan["face_cap"]
+             + plan["band_rows"] * plan["band_cols"])
+    # dynamic and static shared memory together fit what a block may take
+    assert plan["smem_bytes"] == 4 * words
+    assert plan["smem_bytes"] + cuda_raster._SMEM_STATIC <= 232448
+    assert plan["threads"] == (512 if n_poses <= 264 else 256)
+    assert 1 <= plan["face_cap"] <= max(n_faces, 1)
+    assert 1 <= plan["band_rows"] <= h and 1 <= plan["band_cols"] <= w
+    if 13 * 4 * n_faces + 12 * n_verts + 4 * h * w <= 100_000:  # everything fits at once
+        assert plan["cache_verts"] and plan["face_cap"] == max(n_faces, 1)
+        assert (plan["band_rows"], plan["band_cols"]) == (h, w)
+
+
+def test_launch_plan_rejects_bad_tuning_and_the_cpu_ignores_tuning():
+    for bad in ({"face_budget": 0}, {"pixel_budget": -1},
+                {"pixel_budget": 10**6, "face_budget": 4000}):
+        with pytest.raises(ValueError):
+            launch_plan(642, 1280, 480, 640, 8, **bad)
+    for bad in ({"threads": 100}, {"lanes": 8}):  # the kernel's own choices
+        with pytest.raises(TypeError):
+            launch_plan(642, 1280, 480, 640, 8, **bad)
+    args = _scene("cube", 16, 16, n=2)
+    tuning = {"face_budget": 5, "pixel_budget": 40}
+    mu = render_depth(*args, device="cpu", tuning=tuning)  # the plain version: no plan
+    assert torch.equal(mu, render_depth(*args, device="cpu"))
+    z = torch.where(mu[0] > 0, mu[0], torch.full_like(mu[0], torch.inf))
+    params = Parameters(width=16, height=16, device="cpu")
+    a = render_score(*args, z, 0.7, params, "simple", device="cpu", tuning=tuning)
+    b = render_score(*args, z, 0.7, params, "simple", device="cpu")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_binned_reference_matches_pallas_render_depth():
+    """The binned algorithm against the TPU kernel run in interpret mode, at
+    the tolerances of tests/test_torch_render_depth.py (the two rasterisers
+    evaluate the edge functions by different arithmetic)."""
+    rng = np.random.default_rng(7)
+    mesh = mesh_io.icosphere_mesh(0.06, 1)
+    w, h, n = 32, 24, 6
+    cam = dict(width=w, height=h, f_x=110.0, f_y=110.0, c_x=(w - 1) / 2, c_y=(h - 1) / 2,
+               near=0.01, far=10.0)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t = (np.array([0.0, 0.0, 1.0]) + 0.03 * rng.normal(size=(n, 3))).astype(np.float32)
+    mu_t = render_mu_binned_reference(
+        torch.as_tensor(mesh.vertices), torch.as_tensor(mesh.faces), CvCamera(**cam),
+        torch.as_tensor(t), torch.as_tensor(q), face_budget=30, pixel_budget=200)
+    mu_t = mu_t.reshape(n, h, w).numpy()
+    mu_j = np.asarray(pallas_render_depth(jnp.asarray(mesh.vertices), jnp.asarray(mesh.faces),
+                                          JCam(**cam), jnp.asarray(t), jnp.asarray(q), chunk=128))
+    assert (mu_j > 0).mean() > 0.05
+    assert np.mean((mu_t > 0) != (mu_j > 0)) < 5e-3
+    both = (mu_t > 0) & (mu_j > 0)
+    assert np.percentile(np.abs(mu_t[both] - mu_j[both]) / mu_j[both], 99) < 1e-4
+
+
+def test_box_constants_match_the_kernel_source():
+    """The box rule and the plan are written twice, in Python and in CUDA:
+    the constants of the two must be the same numbers."""
+    src = (Path(cuda_raster.__file__).resolve().parents[1] / "csrc" / "render_score.cu").read_text()
+
+    def constant(name):
+        line = next(ln for ln in src.splitlines() if "constexpr" in ln and f" {name} =" in ln)
+        return float(line.split("=")[1].split(";")[0].strip().rstrip("fu"))
+
+    assert constant("kFormWords") == cuda_raster._FORM_WORDS
+    assert np.float32(constant("kBoxTol")) == np.float32(cuda_raster._BOX_TOL)
+    assert np.float32(constant("kBoxErr")) == np.float32(cuda_raster._BOX_ERR)
+    assert np.float32(constant("kBoxSlack")) == np.float32(cuda_raster._BOX_SLACK)
+    assert constant("kBoxWhole") == cuda_raster._BOX_WHOLE
+    assert np.float32(constant("kTol")) == np.float32(cuda_raster._TOL)
+    assert constant("kMaxThreads") == 512
+    # the static shared memory (two accumulator arrays and three counters)
+    # fits its reserve, and the reserve is the same number on both sides
+    assert constant("kSmemStatic") == cuda_raster._SMEM_STATIC
+    assert constant("kSmemLimit") == cuda_raster._SMEM_LIMIT + cuda_raster._SMEM_STATIC == 232448
+    static = 2 * int(constant("kAccumulators")) * 16 * 4 + 3 * 4
+    assert -(-static // 16) * 16 <= cuda_raster._SMEM_STATIC
