@@ -85,6 +85,20 @@
 //     can force small ones so that these paths are tested;
 //   * threads per block are the host's choice (512 where the poses are fewer
 //     than two per SM, else 256), so few poses still spread their set-up.
+//   * a few poses of a large mesh (the BOP evaluation: 2-5 poses of
+//     81,920-128,000 faces at 100x100) would leave most SMs idle and walk
+//     dozens of face chunks in turn, so the depth-only kernel splits each
+//     pose's faces over face_slices blocks (launch_plan: below 66 poses,
+//     about two blocks per SM in all, a few hundred faces or more a slice,
+//     one chunk each where it fits). Each block does the unchanged set-up, box rule and
+//     raster on its slice, then merges the pixels it covers into the pose's
+//     image in device memory (zeroed first) with the same integer atomicMax
+//     of the inverse depth's bits; a second small kernel turns the bits into
+//     mu with the same expression. A max does not depend on order, so the
+//     image is bitwise the one a single block per pose makes. A second
+//     kernel (not the last block to arrive) because it needs no arrival
+//     counter or scratch and the stream orders it after every merge; it
+//     costs one launch gap.
 //   * all geometry in fp32, evaluated directly: none of the TPU workarounds
 //     (bf16x2 split, 2^30 inside scaling, 8-pose sublane blocks, MXU edge
 //     contraction, 256 px side limit, antipodal face pairing).
@@ -97,7 +111,9 @@
 // tests of 15 fp32 operations; the TPU kernel's MXU edge contraction served
 // its all-pixels loop, and its bf16 split cannot give the exact inside test),
 // TMA for the mesh (a few KB of vertices per block, L2-resident after the
-// first block), thread-block clusters (one block per pose fits).
+// first block), thread-block clusters (one block per pose fits a score
+// kernel; the depth split takes ~88 slices of a pose at the evaluation
+// shape, far above a cluster's 8 blocks, so it merges through L2).
 //
 // The smooth epilogue reproduces the JAX package's kernel-safe log Phi
 // (jl_tpu/distributions.py:56-93): the A&S 7.1.26 erf above x = -4, the
@@ -118,7 +134,9 @@
 // an NVIDIA H100 80GB HBM3 at 700 W (chip_profile.py kernels): 0.016 ms at the
 // bench shape and 0.051 ms at the tracking shape with 600 poses, 1.7 % and
 // 4.2 % of those bounds, 6-7 times the speed of the all-pixels loop this
-// design replaced.
+// design replaced; the depth-only kernel at the BOP evaluation's shape
+// (81,920 faces, 3 poses, 100x100) 0.022-0.025 ms split into 88 face slices
+// against 0.34-0.58 ms with one block per pose.
 //
 // What is left on the table. At the tracking shape half of the blocks'
 // cycles are the score epilogue (about 300 operations a covered pixel:
@@ -179,6 +197,8 @@ struct Plan {
   int cache_verts;  // projected vertices kept in shared memory
   int face_cap;     // faces per chunk
   int band_rows, band_cols;  // the image tile held in shared memory
+  int face_slices;  // blocks per pose, each on a contiguous slice of the faces
+                    // (the depth-only kernel; 1 for the score kernels)
 };
 
 struct Pose {
@@ -430,7 +450,21 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
                 "kSmemStatic must cover the static shared memory");
 
   BPE_PHASE_START
-  const int pose = blockIdx.x;
+  // The depth-only kernel may split a pose's faces over face_slices blocks
+  // (block = pose * face_slices + slice, each on a contiguous slice of the
+  // faces); each block rasters its slice into its own tile and then merges
+  // the pixels it covers into the pose's image in device memory by an
+  // integer atomicMax of the inverse depth's bits (order-free, so the image
+  // is the one a single block makes), and depth_resolve_kernel turns the
+  // merged bits into mu. The score kernels take one block per pose.
+  const int n_slices = E == kDepthOnly ? plan.face_slices : 1;
+  const int pose = blockIdx.x / n_slices;
+  const int slice = blockIdx.x - pose * n_slices;
+  const int per_slice = (n_faces + n_slices - 1) / n_slices;
+  const int f_first = min(slice * per_slice, n_faces);
+  const int f_last = min(f_first + per_slice, n_faces);  // exclusive
+  const bool merge = n_slices > 1;
+  if (merge && f_first == f_last) return;  // an empty slice adds nothing
   const int tid = threadIdx.x;
   const int n_threads = blockDim.x;
   const int lane = tid & 31;
@@ -489,7 +523,7 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
     s_acc[1][j][sub] = 0.0f;
   }
 
-  const bool one_chunk = n_faces <= cap;
+  const bool one_chunk = f_last - f_first <= cap;
   bool forms_ready = false;  // with one chunk the forms outlive the tiles
 
   for (int row0 = 0; row0 < height; row0 += plan.band_rows) {
@@ -499,7 +533,7 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
       const int band_pix = bh * bw;
       for (int i = tid; i < band_pix; i += n_threads) s_img[i] = 0;
 
-      for (int f0 = 0; f0 < n_faces; f0 += cap) {
+      for (int f0 = f_first; f0 < f_last; f0 += cap) {
         if (!forms_ready) {
           // set-up, part 2: forms, culls and box of each face of the chunk
           __syncthreads();  // vertices projected; the chunk before is done
@@ -510,7 +544,7 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
             s_area = 0;
           }
           __syncthreads();
-          const int f_end = min(f0 + cap, n_faces);
+          const int f_end = min(f0 + cap, f_last);
           for (int fb = f0; fb < f_end; fb += n_threads) {
             const int f = fb + tid;
             bool valid = false;
@@ -676,10 +710,18 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
         const int lr = ls / seg_per_row;
         const int lc = ((ls - lr * seg_per_row) << 4) + sub;
         if (lc < bw) {
-          const float maxd = __int_as_float(s_img[lr * bw + lc]);
-          const float mu = maxd > 0.0f ? 1.0f / maxd : 0.0f;
           const size_t p =
               (size_t)(row0 + lr) * (size_t)width + (size_t)(col0 + lc);
+          if (merge) {  // the slice's covered pixels into the pose's image
+            const int bits = s_img[lr * bw + lc];
+            if (bits != 0) {
+              atomicMax(reinterpret_cast<int*>(mu_out) + (size_t)pose * n_pix + p,
+                        bits);
+            }
+            continue;
+          }
+          const float maxd = __int_as_float(s_img[lr * bw + lc]);
+          const float mu = maxd > 0.0f ? 1.0f / maxd : 0.0f;
           if constexpr (kMu) {
             mu_out[(size_t)pose * n_pix + p] = mu;
           }
@@ -727,9 +769,23 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
   }
 }
 
+// The last pass of a split depth launch: the merged inverse-depth bits (0
+// where no slice covered the pixel) to mu, in place, by the expression a
+// block uses when it holds the whole pose.
+__global__ void __launch_bounds__(256)
+depth_resolve_kernel(float* __restrict__ mu, size_t n) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float maxd = mu[i];
+    mu[i] = maxd > 0.0f ? 1.0f / maxd : 0.0f;
+  }
+}
+
 bool plan_ok(int threads, const Plan& plan) {
   return threads >= 32 && kMaxThreads % threads == 0 &&
-         plan.face_cap >= 1 && plan.band_rows >= 1 && plan.band_cols >= 1;
+         plan.face_cap >= 1 && plan.band_rows >= 1 && plan.band_cols >= 1 &&
+         plan.face_slices >= 1;
 }
 
 template <int E, bool kMu>
@@ -741,6 +797,10 @@ cudaError_t launch(const float* verts, int n_verts, const int* faces,
                    const Plan& plan, float* ell, float* sum_o, float* mu,
                    float* background, cudaStream_t stream) {
   if (!plan_ok(threads, plan)) return cudaErrorInvalidValue;
+  const int slices = plan.face_slices;
+  if (E != kDepthOnly && slices != 1) return cudaErrorInvalidValue;
+  if ((long long)n_poses * slices > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t n_out = (size_t)n_poses * (size_t)height * (size_t)width;
   if constexpr (E != kDepthOnly) {
     if (background != nullptr) {
       const size_t n_pix = (size_t)height * (size_t)width;
@@ -763,9 +823,20 @@ cudaError_t launch(const float* verts, int n_verts, const int* faces,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  render_score_kernel<E, kMu><<<n_poses, threads, smem, stream>>>(
+  if (slices > 1) {  // the slices merge into a zeroed image
+    const cudaError_t err =
+        cudaMemsetAsync(mu, 0, sizeof(float) * n_out, stream);
+    if (err != cudaSuccess) return err;
+  }
+  render_score_kernel<E, kMu><<<n_poses * slices, threads, smem, stream>>>(
       verts, n_verts, faces, n_faces, t, q, z_img, prior_img, height, width,
       cam, backface_cull, sp, hyper, background, plan, ell, sum_o, mu);
+  if (slices == 1) return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t blocks = (n_out + 255) / 256;
+  depth_resolve_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      mu, n_out);
   return cudaGetLastError();
 }
 
@@ -795,7 +866,7 @@ extern "C" int bpe_render_score(
   const Camera cam{fx, fy, s, cx_off, cy_off, near, far};
   const ScoreParams sp{min_depth, max_depth, pixel_theta, pixel_sigma,
                        association_sigma};
-  const Plan plan{cache_verts, face_cap, band_rows, band_cols};
+  const Plan plan{cache_verts, face_cap, band_rows, band_cols, 1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BPE_ARGS                                                            \
   verts, n_verts, faces, n_faces, t, q, n_poses, z_img, prior_img, height, \
@@ -816,18 +887,21 @@ extern "C" int bpe_render_score(
 }
 
 // Depth render alone: mu [n_poses, height * width] (0 = background) for the
-// same mesh, camera and pose arguments. Same launch rules as above.
+// same mesh, camera and pose arguments. Same launch rules as above, and
+// `face_slices` blocks per pose (launch_plan's rule): with more than one, the
+// image is zeroed, the slices merge into it and a second small kernel
+// (depth_resolve_kernel) turns it into mu, all on `stream`.
 extern "C" int bpe_render_depth(
     const float* verts, int n_verts, const int* faces, int n_faces,
     const float* t, const float* q, int n_poses, int height, int width,
     float fx, float fy, float s, float cx_off, float cy_off, float near,
     float far, int backface_cull, float* mu, int threads, int cache_verts,
-    int face_cap, int band_rows, int band_cols, void* stream) {
+    int face_cap, int band_rows, int band_cols, int face_slices, void* stream) {
   if (n_poses <= 0) return 0;
   if (mu == nullptr) return (int)cudaErrorInvalidValue;
   const Camera cam{fx, fy, s, cx_off, cy_off, near, far};
   const ScoreParams sp{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  const Plan plan{cache_verts, face_cap, band_rows, band_cols};
+  const Plan plan{cache_verts, face_cap, band_rows, band_cols, face_slices};
   return (int)launch<kDepthOnly, true>(
       verts, n_verts, faces, n_faces, t, q, n_poses, nullptr, nullptr, height,
       width, cam, backface_cull, sp, nullptr, threads, plan, nullptr, nullptr,

@@ -10,11 +10,13 @@ in plain PyTorch) for CPU tensors; there is no fallback from one to the other.
 
 The kernel tests a live triangle only at the pixels of a bounding box and
 keeps a pose's faces and image in shared memory, in chunks and tiles where
-they do not fit. What decides that lives here, where the CPU tests reach it:
-``triangle_boxes`` (the box rule, mirrored line for line in the kernel),
-``launch_plan`` (the shared-memory plan the kernel is launched with) and
-``render_mu_binned_reference`` (the kernel's algorithm in plain PyTorch,
-bitwise equal to ``render_mu_reference``, which tests every pixel).
+they do not fit; the depth-only kernel may split a pose's faces over several
+blocks that merge their images by a max. What decides that lives here, where
+the CPU tests reach it: ``triangle_boxes`` (the box rule, mirrored line for
+line in the kernel), ``launch_plan`` (the shared-memory plan and face slices
+the kernel is launched with) and ``render_mu_binned_reference`` (the depth
+kernel's algorithm in plain PyTorch, bitwise equal to
+``render_mu_reference``, which tests every pixel).
 
 The kernel library is compiled with ``nvcc`` from the package's own source at
 the first CUDA launch, into ``_build/`` beside the package, and loaded with
@@ -73,6 +75,19 @@ _FORM_WORDS = 13  # per live face: nine forms and the box c0, c1, r0, r1
 _SMEM_STATIC = 4224  # the kernel's static shared memory (4,112 B), rounded up
 _SMEM_LIMIT = 232448 - _SMEM_STATIC  # dynamic part of what a block may take on sm_90
 _VERT_CACHE_BYTES = 64 * 1024  # projected vertices are cached up to this size
+# threads per block: 512 below two poses per SM of an H100 (132 SMs)
+_POSES_FILL = 2 * 132
+# The depth-only kernel's face slices. A split costs a fixed ~3 us (the
+# image's zeroing, the merge, a second kernel) and pays where the poses
+# leave most SMs idle: it does below _SPLIT_BELOW poses (half the SMs),
+# where the blocks are made to number about _POSES_FILL, a slice keeping at
+# least _SLICE_FACES faces. Device ms on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_profile.py kernels, face-slice sweep): 81,920 faces, 3 poses,
+# 100x100: 0.0230 in 88 slices vs 0.4159 in one block per pose; 1,280 faces
+# at 80x60, 24 poses: 0.0116 in 5 vs 0.0136; 120 poses: 0.0218 in 3 vs
+# 0.0145; 100 poses at 30x30: 0.0125 in 3 vs 0.0092.
+_SPLIT_BELOW = 132 // 2
+_SLICE_FACES = 256
 # pixel evaluations (poses x pixels) from which a launch takes the score of
 # uncovered pixels once, in a kernel of its own (~2 us of device time).
 # Device ms without / with it on an NVIDIA H100 80GB HBM3 at 700 W
@@ -85,6 +100,7 @@ _BOX_SLACK = 1e-6
 _BOX_WHOLE = 6.0  # from this r on, the box is the whole image
 # the plan as the C entry points take it, in their argument order
 _PLAN_ARGS = ("threads", "cache_verts", "face_cap", "band_rows", "band_cols")
+_DEPTH_PLAN_ARGS = (*_PLAN_ARGS, "face_slices")
 
 
 @functools.lru_cache(maxsize=256)
@@ -267,26 +283,43 @@ def triangle_boxes(verts, faces, cam: CvCamera, t, q, margin=True):
 
 
 def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
-                pixel_budget=None):
-    """How one pose's block divides its shared memory and its work:
-    ``threads`` per block (512 where the poses are fewer than two per SM,
-    else 256); ``cache_verts`` (the projected vertices are kept in shared
-    memory, else each face projects its own corners); ``face_cap`` faces per
-    chunk (13 words each); a ``band_rows`` x ``band_cols`` tile of the
-    inverse-depth image; ``smem_bytes`` of dynamic shared memory in all.
+                pixel_budget=None, face_slices=None, depth_only=False):
+    """How one block divides its shared memory and its work: ``threads`` per
+    block (512 where the poses are fewer than two per SM, else 256);
+    ``cache_verts`` (the projected vertices are kept in shared memory, else
+    each face projects its own corners); ``face_cap`` faces per chunk (13
+    words each); a ``band_rows`` x ``band_cols`` tile of the inverse-depth
+    image; ``smem_bytes`` of dynamic shared memory in all; ``face_slices``
+    blocks per pose, each on a contiguous slice of ceil(F / face_slices)
+    faces.
 
-    The defaults keep every face and the whole image resident where they fit
-    in the 227 KB a block may take (less the kernel's static part), and cut
-    faces into chunks and the image into tiles where they do not.
-    ``face_budget`` and ``pixel_budget`` force smaller ones (for tests of the
-    chunked and banded paths)."""
-    threads = 256 if n_poses is None or n_poses > 264 else 512
-    for name, b in (("face_budget", face_budget), ("pixel_budget", pixel_budget)):
+    The defaults keep every face of a slice and the whole image resident
+    where they fit in the 227 KB a block may take (less the kernel's static
+    part), and cut faces into chunks and the image into tiles where they do
+    not. The score kernels take one block per pose (``face_slices`` 1). With
+    ``depth_only`` (the depth-only kernel) and fewer poses than half the
+    SMs, the faces are split: about two blocks per SM in all, at least 256
+    faces a slice, and enough slices that each is one chunk.
+    ``face_budget``, ``pixel_budget`` and ``face_slices`` force other values
+    (for tests of the chunked, banded and split paths); none of them changes
+    the image."""
+    threads = 256 if n_poses is None or n_poses > _POSES_FILL else 512
+    for name, b in (("face_budget", face_budget), ("pixel_budget", pixel_budget),
+                    ("face_slices", face_slices)):
         if b is not None and b < 1:
             raise ValueError(f"{name} must be at least 1, got {b}")
+    if face_slices is not None and not depth_only:
+        raise ValueError("face_slices applies to the depth-only kernel (render_depth)")
     cache_verts = 12 * n_verts <= _VERT_CACHE_BYTES
     left = _SMEM_LIMIT - (12 * n_verts if cache_verts else 0)
-    face_cap = max(1, min(n_faces, face_budget or left // 2 // (4 * _FORM_WORDS)))
+    fit = max(1, left // 2 // (4 * _FORM_WORDS))  # faces of one chunk beside the image
+    slices = face_slices or 1
+    if face_slices is None and depth_only and n_poses is not None and n_poses < _SPLIT_BELOW:
+        slices = min(-(-_POSES_FILL // max(n_poses, 1)), max(1, n_faces // _SLICE_FACES))
+        slices = max(slices, -(-n_faces // fit))
+    if n_poses is not None and n_poses * slices >= 2**31:
+        raise ValueError(f"{n_poses} poses x {slices} face slices exceed a launch's blocks")
+    face_cap = max(1, min(-(-n_faces // slices), face_budget or fit))
     left -= 4 * _FORM_WORDS * face_cap
     n_pixels = max(1, min(height * width, pixel_budget or left // 4))
     band_cols = min(width, n_pixels)
@@ -296,51 +329,60 @@ def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"the plan needs {smem} bytes of shared memory, over {_SMEM_LIMIT}")
     return {"threads": threads, "cache_verts": cache_verts, "face_cap": face_cap,
-            "band_rows": band_rows, "band_cols": band_cols, "smem_bytes": smem}
+            "band_rows": band_rows, "band_cols": band_cols, "smem_bytes": smem,
+            "face_slices": slices}
 
 
 def render_mu_binned_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True,
-                               face_budget=None, pixel_budget=None):
-    """Rendered depth μ [N, H*W] by the kernel's algorithm in plain PyTorch:
-    image tile by image tile and face chunk by face chunk (``launch_plan``),
-    each live triangle is tested only at the pixels of its box
-    (``triangle_boxes``) inside the tile, and a passing pixel's positive
-    inverse depth goes into the image by a scattered max. Same expressions as
-    ``render_mu_reference``, which tests every triangle at every pixel."""
+                               face_budget=None, pixel_budget=None, face_slices=None):
+    """Rendered depth μ [N, H*W] by the depth kernel's algorithm in plain
+    PyTorch: face slice by face slice, image tile by image tile and face
+    chunk by face chunk (``launch_plan`` for N poses), each live triangle is
+    tested only at the pixels of its box (``triangle_boxes``) inside the
+    tile, and a passing pixel's positive inverse depth goes into the slice's
+    image by a scattered max; the slices' images then merge by a max. Same
+    expressions as ``render_mu_reference``, which tests every triangle at
+    every pixel."""
     valid, forms = triangle_forms(verts, faces, cam, t, q, backface_cull)
     c0, c1, r0, r1 = (b.long() for b in triangle_boxes(verts, faces, cam, t, q))
     c = _camera_scalars(cam)
     n, n_faces = valid.shape
     height, width = cam.height, cam.width
-    plan = launch_plan(verts.shape[0], n_faces, height, width, face_budget=face_budget,
-                       pixel_budget=pixel_budget)
+    plan = launch_plan(verts.shape[0], n_faces, height, width, n, face_budget=face_budget,
+                       pixel_budget=pixel_budget, face_slices=face_slices, depth_only=True)
+    per_slice = -(-n_faces // plan["face_slices"])
     maxd = torch.zeros(n * height * width, dtype=verts.dtype, device=verts.device)
-    for row0 in range(0, height, plan["band_rows"]):
-        row1 = min(row0 + plan["band_rows"], height) - 1
-        for col0 in range(0, width, plan["band_cols"]):
-            col1 = min(col0 + plan["band_cols"], width) - 1
-            for f0 in range(0, n_faces, plan["face_cap"]):
-                sl = slice(f0, f0 + plan["face_cap"])
-                bc0, br0 = c0[:, sl].clamp(min=col0), r0[:, sl].clamp(min=row0)
-                box_w = (c1[:, sl].clamp(max=col1) - bc0 + 1).clamp(min=0)
-                box_h = (r1[:, sl].clamp(max=row1) - br0 + 1).clamp(min=0)
-                count = torch.where(valid[:, sl], box_w * box_h, torch.zeros_like(box_w))
-                count = count.reshape(-1)
-                # one entry per (triangle, pixel of its box in this tile)
-                tri = torch.repeat_interleave(torch.arange(count.numel(), device=count.device),
-                                              count)
-                i = torch.arange(tri.numel(), device=tri.device) - (count.cumsum(0) - count)[tri]
-                bw = box_w.reshape(-1)[tri]
-                rr = i // bw
-                col = bc0.reshape(-1)[tri] + (i - rr * bw)
-                row = br0.reshape(-1)[tri] + rr
-                pu = col.to(verts.dtype) - c["gcx"]
-                pv = row.to(verts.dtype) - c["gcy"]
-                inside, d = inside_test([x[:, sl].reshape(-1)[tri] for x in forms], pu, pv)
-                hit = inside & (d > 0)
-                pose = tri // box_w.shape[1]
-                pixel = (pose * height + row) * width + col
-                maxd.scatter_reduce_(0, pixel[hit], d[hit], reduce="amax")
+    for s0 in range(0, n_faces, max(per_slice, 1)):
+        s1 = min(s0 + per_slice, n_faces)
+        part = torch.zeros_like(maxd)  # the slice's own image
+        for row0 in range(0, height, plan["band_rows"]):
+            row1 = min(row0 + plan["band_rows"], height) - 1
+            for col0 in range(0, width, plan["band_cols"]):
+                col1 = min(col0 + plan["band_cols"], width) - 1
+                for f0 in range(s0, s1, plan["face_cap"]):
+                    sl = slice(f0, min(f0 + plan["face_cap"], s1))
+                    bc0, br0 = c0[:, sl].clamp(min=col0), r0[:, sl].clamp(min=row0)
+                    box_w = (c1[:, sl].clamp(max=col1) - bc0 + 1).clamp(min=0)
+                    box_h = (r1[:, sl].clamp(max=row1) - br0 + 1).clamp(min=0)
+                    count = torch.where(valid[:, sl], box_w * box_h, torch.zeros_like(box_w))
+                    count = count.reshape(-1)
+                    # one entry per (triangle, pixel of its box in this tile)
+                    tri = torch.repeat_interleave(
+                        torch.arange(count.numel(), device=count.device), count)
+                    i = torch.arange(tri.numel(), device=tri.device) - (count.cumsum(0)
+                                                                         - count)[tri]
+                    bw = box_w.reshape(-1)[tri]
+                    rr = i // bw
+                    col = bc0.reshape(-1)[tri] + (i - rr * bw)
+                    row = br0.reshape(-1)[tri] + rr
+                    pu = col.to(verts.dtype) - c["gcx"]
+                    pv = row.to(verts.dtype) - c["gcy"]
+                    inside, d = inside_test([x[:, sl].reshape(-1)[tri] for x in forms], pu, pv)
+                    hit = inside & (d > 0)
+                    pose = tri // box_w.shape[1]
+                    pixel = (pose * height + row) * width + col
+                    part.scatter_reduce_(0, pixel[hit], d[hit], reduce="amax")
+        maxd = torch.maximum(maxd, part)
     maxd = maxd.reshape(n, height * width)
     return torch.where(maxd > 0, 1.0 / torch.where(maxd > 0, maxd, torch.ones_like(maxd)),
                        torch.zeros_like(maxd))
@@ -415,22 +457,23 @@ def build_library(phase_clocks=False):
                    f, f, f, f, f, p, p, p, p, p, *plan, p]
     fn.restype = ctypes.c_int
     fn = lib.bpe_render_depth
-    fn.argtypes = [p, i, p, i, p, p, i, i, i, f, f, f, f, f, f, f, i, p, *plan, p]
+    fn.argtypes = [p, i, p, i, p, p, i, i, i, f, f, f, f, f, f, f, i, p, *plan, i, p]
     fn.restype = ctypes.c_int
     return lib, log
 
 
 @functools.lru_cache(maxsize=256)
-def _cached_plan_args(n_verts, n_faces, height, width, n_poses, tuning):
-    plan = launch_plan(n_verts, n_faces, height, width, n_poses, **dict(tuning))
-    return tuple(int(plan[k]) for k in _PLAN_ARGS)
+def _cached_plan_args(n_verts, n_faces, height, width, n_poses, tuning, depth_only):
+    plan = launch_plan(n_verts, n_faces, height, width, n_poses, **dict(tuning),
+                       depth_only=depth_only)
+    return tuple(int(plan[k]) for k in (_DEPTH_PLAN_ARGS if depth_only else _PLAN_ARGS))
 
 
-def _plan_args(verts, faces, cam, n_poses, tuning):
+def _plan_args(verts, faces, cam, n_poses, tuning, depth_only=False):
     """The launch plan as the C entry points take it (cached by shape: a
     chain launches the same shape thousands of times)."""
     return _cached_plan_args(verts.shape[0], faces.shape[0], cam.height, cam.width, n_poses,
-                             tuple(sorted(tuning.items())) if tuning else ())
+                             tuple(sorted(tuning.items())) if tuning else (), depth_only)
 
 
 def _check(name, x, dtype, shape):
@@ -478,9 +521,11 @@ def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="
     verts [V, 3] f32, faces [F, 3] int32, t [N, 3] f32, q [N, 4] f32 (w, x, y,
     z); (H, W) = (cam.height, cam.width). Every tensor must lie on
     ``device``: CUDA launches the depth-only kernel, the CPU runs
-    ``render_depth_reference``. ``render_depth.launches`` counts the kernel
-    launches. ``tuning``: None, or ``launch_plan``'s ``face_budget`` and
-    ``pixel_budget`` for the kernel launch; they change how the work is
+    ``render_depth_reference``. ``render_depth.launches`` counts the calls
+    that launch the kernel (one each, also where the faces are split over
+    several blocks per pose and a second small kernel finishes the image).
+    ``tuning``: None, or ``launch_plan``'s ``face_budget``, ``pixel_budget``
+    and ``face_slices`` for the kernel launch; they change how the work is
     divided, never the image."""
     dev = resolve_device(device)
     _check_mesh_and_poses(dev, verts, faces, t, q)
@@ -493,7 +538,7 @@ def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="
         return mu
     lib, _ = build_library()
     c = _camera_scalars(cam)
-    plan = _plan_args(verts, faces, cam, n, tuning)
+    plan = _plan_args(verts, faces, cam, n, tuning, depth_only=True)
     with torch.cuda.device(verts.device):
         err = lib.bpe_render_depth(
             verts.data_ptr(), verts.shape[0], faces.data_ptr(), faces.shape[0],
@@ -526,7 +571,8 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
     ``render_score_reference``. ``render_score.launches`` counts the kernel
     launches and ``render_score.launches_by`` counts them by epilogue
     (``"+hyper"`` added for launches with a hyper row, ``"+mu"`` for launches
-    that write the image). ``tuning``: as for ``render_depth``."""
+    that write the image). ``tuning``: as for ``render_depth``, without
+    ``face_slices`` (a score kernel takes one block per pose)."""
     dev = resolve_device(device)
     if variant not in SCORE_VARIANTS:
         raise ValueError(f"unknown score variant {variant!r}")

@@ -4,6 +4,7 @@
     python3 chip_profile.py            # the benchmark chain
     python3 chip_profile.py tracking   # the particle filters
     python3 chip_profile.py kernels    # both of the above, then the kernel alone
+    python3 chip_profile.py evaluation # the BOP evaluation with and without the depth split
 
 The benchmark chain is bench.py's configuration through the port
 (chip_smoke.run_chain: monkey mesh, 30x30, 100 particles, tempered SMC-MH,
@@ -19,7 +20,10 @@ device time by kernel name.
 
 ``kernels`` times ``csrc/render_score.cu`` alone at the shapes those paths
 give it (bench shape: 1280-face monkey, 30x30, 100 poses; tracking shape:
-256-face mesh, 80x60, 600 and 1250 poses): each row is first held against its
+256-face mesh, 80x60, 600 and 1250 poses; ``render_depth`` also at the BOP
+evaluation's shape, 81,920 faces, 3 poses, 100x100, every face drawn, and at
+the bench shape, each with its automatic face slices and with one block per
+pose): each row is first held against its
 plain version, then timed with CUDA events and the profiler beside its bound
 (chip_smoke.bound_ms), the share of the bound it reaches and, from a build
 with in-kernel phase clocks (no kernel profiler runs on a sealed machine),
@@ -28,7 +32,10 @@ most are also timed with the background-score kernel forced off and on (in
 the order off, on, on, off: what the wrapper's threshold rests on). It runs the chain and the tracking profiles
 first, and last replays each row from a CUDA graph of 50 launches: the time per
 launch once the host's pacing (the Python wrapper, ~0.07-0.1 ms a call) is
-out of the way. Needs a CUDA device.
+out of the way. Between the two, ``render_depth``'s face slices are swept
+(device time for forced slice counts beside the automatic plan's, its phase
+clocks, and how evenly its slices share the raster's big boxes). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -196,9 +203,10 @@ def phase_shares(fn, n=20):
 
 def kernel_rows(card, graphs=False):
     """The kernel alone at the main paths' shapes: checked against the plain
-    version, then its time beside its bound, and the most launched rows with
-    and without the background-score kernel. ``graphs``: only the time per launch of each
-    row replayed from a CUDA graph (no host pacing)."""
+    version, then its time beside the plain version's and its bound, and the
+    most launched rows with and without the background-score kernel.
+    ``graphs``: only the time per launch of each row replayed from a CUDA
+    graph (no host pacing)."""
     import torch
 
     import chip_smoke
@@ -217,34 +225,56 @@ def kernel_rows(card, graphs=False):
     bench = chip_smoke.kernel_inputs(dev, 30, 30, "monkey")
     track = chip_smoke.tracking_kernel_inputs(dev)
     track_big = chip_smoke.tracking_kernel_inputs(dev, n_poses=1250)
-    rows = [("render_score[association] bench shape, 100 poses", bench, "association", False),
-            ("render_score[fixed_o] tracking shape, 600 poses", track, "simple", False),
-            ("render_score[fixed_o] tracking shape, 1250 poses", track_big, "simple", False),
-            ("render_score[fixed_o+mu] tracking shape, 600 poses", track, "simple", True),
-            ("render_depth tracking shape, 600 poses", track, None, True),
-            *((f"render_score[{e}] bench shape, 100 poses", bench, v, False)
+    evaluation = chip_smoke.evaluation_depth_args(dev)
+    one = {"face_slices": 1}
+    drawn = {"backface_cull": False}
+    # (name, inputs, score variant or None for render_depth, image, render_depth kwargs)
+    rows = [("render_score[association] bench shape, 100 poses", bench, "association", False,
+             None),
+            ("render_score[fixed_o] tracking shape, 600 poses", track, "simple", False, None),
+            ("render_score[fixed_o] tracking shape, 1250 poses", track_big, "simple", False,
+             None),
+            ("render_score[fixed_o+mu] tracking shape, 600 poses", track, "simple", True, None),
+            ("render_depth tracking shape, 600 poses", track, None, True, {}),
+            ("render_depth evaluation shape, 81920 faces, 3 poses", evaluation, None, True,
+             drawn),
+            ("render_depth evaluation shape, one block per pose", evaluation, None, True,
+             {**drawn, "tuning": one}),
+            ("render_depth bench shape, 100 poses", bench, None, True, {}),
+            ("render_depth bench shape, one block per pose", bench, None, True,
+             {"tuning": one}),
+            *((f"render_score[{e}] bench shape, 100 poses", bench, v, False, None)
               for v, e in SCORE_VARIANTS.items()
               if v in ("simple", "smooth", "no_exp", "no_exp_association"))]
     ok = True
-    for name, args, variant, mu in rows:
+    for name, args, variant, mu, depth_kw in rows:
         verts, faces, cam, t = args[:4]
-        plan = launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width, t.shape[0])
         if variant is None:
-            def run(args=args):
-                return (render_depth(*args[:5], device=dev),)
+            plan = launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width,
+                               t.shape[0], depth_only=True, **(depth_kw.get("tuning") or {}))
 
-            ref = (render_depth_reference(*args[:5]),)
+            def run(args=args, kw=depth_kw):
+                return (render_depth(*args[:5], device=dev, **kw),)
+
+            def plain(args=args, cull=depth_kw.get("backface_cull", True)):
+                return (render_depth_reference(*args[:5], backface_cull=cull),)
+
             epilogue = "depth"
         else:
+            plan = launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width,
+                               t.shape[0])
+
             def run(args=args, variant=variant, mu=mu):
                 return render_score(*args, variant=variant, device=dev, return_mu=mu)
 
-            ref = render_score_reference(*args, variant=variant, return_mu=mu)
+            def plain(args=args, variant=variant, mu=mu):
+                return render_score_reference(*args, variant=variant, return_mu=mu)
+
             epilogue = SCORE_VARIANTS[variant]
         if graphs:
             print(json.dumps({"row": name, "card": card, "graph_ms_per_launch": graph_ms(run)}))
             continue
-        out = run()
+        out, ref = run(), plain()
         sync()
         image_equal = bool(torch.equal(out[-1], ref[-1])) if mu else None
         sums_close = all(bool(torch.allclose(a, b, **chip_smoke.TOL))
@@ -255,7 +285,8 @@ def kernel_rows(card, graphs=False):
         b_ms, b_by, _, pairs = chip_smoke.bound_ms(args, epilogue, mu=mu and variant)
         ms = chip_smoke.time_ms(run, 200, sync)
         dev_ms = chip_smoke.device_ms(run, 50)
-        row.update({"ms": ms, "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+        row.update({"ms": ms, "device_ms": dev_ms, "plain_ms": chip_smoke.time_ms(plain, 3, sync),
+                    "bound_ms": b_ms, "bound_by": b_by,
                     "share_of_bound": b_ms / dev_ms if dev_ms else None,
                     "share_of_bound_paced": b_ms / ms, "live_pairs": pairs,
                     "phases": phase_shares(run)})
@@ -271,6 +302,136 @@ def kernel_rows(card, graphs=False):
             print(json.dumps({"row": name, "card": card,
                               "device_ms_background_off_on_on_off": times}))
     return ok
+
+
+def slice_box_load(args, backface_cull, slices):
+    """How evenly ``slices`` face slices share the raster: per (pose,
+    slice), the pixels of its boxes above 128 pixels (kBigBox: a sliver
+    whose area is rounding noise gets the whole image, and the whole block
+    walks such boxes), max and mean over the blocks, and the whole-image
+    boxes in all."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        triangle_boxes,
+        triangle_forms,
+    )
+
+    verts, faces, cam, t, q = args[:5]
+    valid, _ = triangle_forms(verts, faces, cam, t, q, backface_cull)
+    c0, c1, r0, r1 = triangle_boxes(verts, faces, cam, t, q)
+    area = (c1 - c0 + 1).clamp(min=0) * (r1 - r0 + 1).clamp(min=0) * valid
+    per = -(-faces.shape[0] // slices)
+    big = torch.nn.functional.pad(area * (area > 128), (0, per * slices - faces.shape[0]))
+    load = big.reshape(t.shape[0], slices, per).sum(-1).float()
+    return {"whole_image_boxes": int((area == cam.height * cam.width).sum()),
+            "big_box_pixels_max_block": float(load.max()),
+            "big_box_pixels_mean_block": float(load.mean()),
+            "small_box_pixels": int((area * (area <= 128)).sum())}
+
+
+def face_slice_sweep(card):
+    """render_depth's device time per launch for forced face-slice counts
+    (each image bitwise equal to the plain version), beside the automatic
+    plan with its phase clocks and how evenly its slices share the raster:
+    the evaluation's shape (81,920 faces, 3 poses), the 128,000-face model
+    (3 poses), the bench shape (100 poses), the tracking stream's synthesis
+    (1,280 faces, 120 and 24 poses at 80x60). What launch_plan's rule rests
+    on."""
+    import torch
+
+    import chip_smoke
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        launch_plan,
+        render_depth,
+        render_depth_reference,
+    )
+
+    dev = "cuda"
+    cases = (("evaluation 81920 faces 3 poses 100x100", chip_smoke.evaluation_depth_args(dev),
+              False, (1, 22, 44, 66, 88, 132, 176, 264)),
+             ("128000 faces 3 poses 100x100", chip_smoke.large_model_depth_args(dev), False,
+              (1, 44, 88, 132, 176, 264, 352, 528)),
+             ("bench 1280 faces 100 poses 30x30",
+              chip_smoke.kernel_inputs(dev, 30, 30, "monkey")[:5], True, (1, 2, 3, 5)),
+             ("1280 faces 120 poses 80x60",
+              chip_smoke.kernel_inputs(dev, 80, 60, "monkey", n_poses=120)[:5], True,
+              (1, 2, 3, 5)),
+             ("1280 faces 24 poses 80x60",
+              chip_smoke.kernel_inputs(dev, 80, 60, "monkey", n_poses=24)[:5], True,
+              (1, 3, 5, 11)))
+    ok = True
+    for label, args, cull, counts in cases:
+        ref = render_depth_reference(*args, backface_cull=cull)
+        auto = launch_plan(args[0].shape[0], args[1].shape[0], args[2].height, args[2].width,
+                           args[3].shape[0], depth_only=True)
+        by_slices = {}
+        for s in counts:
+            def run(s=s):
+                return render_depth(*args, backface_cull=cull, device=dev,
+                                    tuning={"face_slices": s})
+
+            same = bool(torch.equal(run(), ref))
+            ok = ok and same
+            by_slices[s] = {"device_ms": chip_smoke.device_ms(run, 30), "graph_ms": graph_ms(run),
+                            "bitwise_equal": same}
+
+        def run_auto():
+            return render_depth(*args, backface_cull=cull, device=dev)
+
+        print(json.dumps({"sweep": label, "card": card, "auto_face_slices": auto["face_slices"],
+                          "auto_face_cap": auto["face_cap"],
+                          "auto_device_ms": chip_smoke.device_ms(run_auto, 30),
+                          "auto_graph_ms": graph_ms(run_auto),
+                          "by_face_slices": by_slices, "auto_phases": phase_shares(run_auto),
+                          "auto_box_load": slice_box_load(args, cull, auto["face_slices"])}))
+    return ok
+
+
+def evaluation_turns(card):
+    """chip_smoke.py phase 7a's evaluation of the 54 JAX estimate artifacts
+    end to end (host clock around all of them, ending in a synchronize),
+    with render_depth's automatic face slices and with one block per pose
+    in turns (split, one, one, split, after a warm-up that fills the mesh
+    and image cache): what the split moves end to end."""
+    import torch
+
+    import chip_smoke
+    from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact, savename
+
+    bopval = chip_smoke.bop_val_script()
+    params = Parameters(device="cuda")
+    raws = [load_artifact(chip_smoke.JAX_RAW / (savename(dict(
+        dataset="synthcad", sampler=s, scene_id=n, testset="val")) + ".npz"))
+        for s in chip_smoke.BOP_SAMPLERS for n in chip_smoke.BOP_SCENES]
+    cache = {}
+
+    def evaluate():
+        cuda_raster.render_depth.launches = 0
+        t0 = time.perf_counter()
+        for raw in raws:
+            bopval.evaluate_scene(raw["__config__"], str(chip_smoke.BOP_DIR), params,
+                                  list(raw["result_rows"]), "cuda", cache)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, cuda_raster.render_depth.launches
+
+    split_below = cuda_raster._SPLIT_BELOW
+    turns = []
+    try:
+        evaluate()  # warm-up: meshes and depth images into the cache
+        for name, below in (("split", split_below), ("one block per pose", 0),
+                            ("one block per pose", 0), ("split", split_below)):
+            cuda_raster._SPLIT_BELOW = below
+            cuda_raster._cached_plan_args.cache_clear()
+            seconds, launches = evaluate()
+            turns.append({"plan": name, "seconds": seconds, "render_depth_launches": launches})
+    finally:
+        cuda_raster._SPLIT_BELOW = split_below
+        cuda_raster._cached_plan_args.cache_clear()
+    print(json.dumps({"evaluation": f"{len(raws)} JAX artifacts (chip_smoke.py phase 7a)",
+                      "card": card, "turns": turns}))
 
 
 def main() -> int:
@@ -290,11 +451,13 @@ def main() -> int:
         # anything or loaded the build with phase clocks
         profile_chain(card)
         profile_tracking(card)
-        if not kernel_rows(card):
+        if not (kernel_rows(card) and face_slice_sweep(card)):
             print("chip_profile: a kernel row disagrees with its plain version",
                   file=sys.stderr)
             return 1
         kernel_rows(card, graphs=True)
+    elif sys.argv[1:] == ["evaluation"]:
+        evaluation_turns(card)
     elif not sys.argv[1:]:
         profile_chain(card)
     else:

@@ -46,7 +46,8 @@ Phases (each prints its results; any failure exits non-zero):
      tau within 0.01, counts under each threshold equal but for entries
      within 0.01 of it), the recall per sampler beside sampler_recall.csv,
      and render_depth at the evaluation's shape (81,920 faces, 100x100, every
-     face drawn) against its plain version, timed; 7b, scene_inference on
+     face drawn, the faces of each pose split over blocks) bitwise equal to
+     its plain version and to one block per pose, both plans timed; 7b, scene_inference on
      scene 1 for smc_mh, mh_sampler and mtm_sampler at the 0.5 s budget:
      finite estimates, launches = likelihood evaluations = 1 + k (steps - 1)
      per chain run (k = 2 for the multiple-try sampler), the best pose's
@@ -58,11 +59,15 @@ against their plain versions and each other, and times them at the tracking
 shape (256-face mesh, 80x60, 600 poses); launches the kernel with forced
 small face chunks and forced small row bands, which must leave the image,
 ell and sum_o bitwise equal to the unforced launch;
+launches ``render_depth`` with forced face slices (one block per pose and
+several), which must leave its image bitwise equal;
 runs the same poses with and without the background-score kernel (bitwise);
 renders 8 poses at 640x480 (an image that takes several shared-memory tiles)
 and a 20480-face mesh at 160x120 (faces in chunks, vertices uncached) against
-the plain version, the depth-only kernel and the score kernels with and
-without the image, depth bitwise; and prints for every timed row the share of its
+the plain version, the depth-only kernel (each of its plans) and the score
+kernels with and without the image, depth bitwise, and the 128,000-face
+synthcad model at the evaluation's 100x100 through each face-slice plan
+(bitwise, timed); and prints for every timed row the share of its
 bound that it reaches.
 The second-to-last line is a JSON object describing the kernels; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -71,6 +76,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -209,8 +215,9 @@ def time_ms(fn, n, sync):
 def device_ms(fn, n):
     """Mean device time (ms) per call of the kernels of csrc/render_score.cu
     that ``n`` calls of ``fn`` launch (the poses' kernel and, for a score,
-    the small background kernel before it), from torch.profiler; None if it
-    records no such kernel."""
+    the small background kernel before it; for a split depth render the
+    image's zeroing and the resolve kernel after it), from torch.profiler;
+    None if it records no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -221,13 +228,15 @@ def device_ms(fn, n):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and is_raster_kernel(e.name)]
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and (is_raster_kernel(e.name) or e.name.startswith("Memset"))]
     return sum(us) / n / 1e3 if us else None
 
 
 def is_raster_kernel(name):
     """Whether a profiled CUDA kernel is one of csrc/render_score.cu."""
-    return "render_score_kernel" in name or "score_background_kernel" in name
+    return any(k in name for k in ("render_score_kernel", "score_background_kernel",
+                                   "depth_resolve_kernel"))
 
 
 def live_pairs(verts, faces, cam, t, q):
@@ -323,6 +332,18 @@ def forced_plan_check(args, label, device, failures):
                                          f"{close})" if narrow else ""))
         if not images or not (close if narrow else sums):
             failures.append(f"forced plan {tuning} at {label}")
+    # the depth-only kernel's face slices (the score kernels take none)
+    auto = launch_plan(verts.shape[0], n_faces, cam.height, width, t.shape[0],
+                       depth_only=True)["face_slices"]
+    for tuning in ({"face_slices": 1}, {"face_slices": 2}, {"face_slices": 9},
+                   {"face_slices": 5, "face_budget": 33, "pixel_budget": 3 * width}):
+        depth = render_depth(*args[:5], device=device, tuning=tuning)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(depth, base_depth))
+        print(f"phase 2 forced plan at {label} {json.dumps(tuning)} (automatic "
+              f"{auto} face slices): render_depth image bitwise equal {same}")
+        if not same:
+            failures.append(f"forced plan {tuning} at {label}")
 
 
 def background_path_check(args, device, failures):
@@ -354,14 +375,18 @@ def background_path_check(args, device, failures):
             failures.append(f"background score path differs ({variant})")
 
 
-def no_size_limit_check(device, failures, verts, faces):
+def no_size_limit_check(device, failures, verts, faces, smi):
     """Shapes that do not fit a block's shared memory at once: 8 poses of the
     1280-face mesh at 640x480 (the image in row bands), and a 20480-face
     icosphere at 160x120 (faces in chunks, vertices projected per face),
     each against the plain version: coverage identical, depth bitwise, from
-    the depth-only kernel and from a score kernel that writes the image; the
-    sums of three score epilogues (whose blocks hold static shared memory
-    beside the plan's) within the kernel-vs-plain tolerance."""
+    the depth-only kernel (its automatic face slices, one block per pose and
+    six slices) and from a score kernel that writes the image; the sums of
+    three score epilogues (whose blocks hold static shared memory beside the
+    plan's) within the kernel-vs-plain tolerance. Then the BOP evaluation's
+    largest model (synthcad object 2, 128,000 faces), 3 poses at 100x100,
+    every face drawn: each plan bitwise equal to the plain version, and the
+    automatic and one-block plans timed."""
     import torch
 
     from bayesianposeestimation.jl_tpu_torch import quaternions as quat
@@ -404,6 +429,14 @@ def no_size_limit_check(device, failures, verts, faces):
               f"bitwise equal {bitwise}; one launch {dt * 1e3:.3f} ms")
         if not (coverage and bitwise and float((ref > 0).float().mean()) > 0.02):
             failures.append(f"no size limit: {label}")
+        for tuning in ({"face_slices": 1}, {"face_slices": 6}):
+            forced = render_depth(v, f, cam, t, q, device=device, tuning=tuning)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(forced, ref))
+            print(f"phase 2 no size limit, {label}, render_depth {json.dumps(tuning)} "
+                  f"(automatic {plan['face_slices']}): depth bitwise equal {same}")
+            if not same:
+                failures.append(f"no size limit: {label}, render_depth {tuning}")
         # the score kernels at the same size, observing the first pose's image
         z = torch.where(ref[0] > 0, ref[0], torch.full_like(ref[0], torch.inf))
         score_args = (v, f, cam, t, q, z, 0.7, Parameters(width=w, height=h, device=str(device)))
@@ -421,6 +454,51 @@ def no_size_limit_check(device, failures, verts, faces):
                   f"{float(want[0].mean()):.1f})")
             if image is False or not sums:
                 failures.append(f"no size limit: {label}, render_score {variant}")
+
+    args = large_model_depth_args(device)
+    v, f = args[:2]
+    ref = render_depth_reference(*args, backface_cull=False)
+    for tuning in (None, {"face_slices": 1}, {"face_slices": 17, "pixel_budget": 2000}):
+        plan = launch_plan(v.shape[0], f.shape[0], 100, 100, 3, depth_only=True,
+                           **(tuning or {}))
+        mu = render_depth(*args, backface_cull=False, device=device, tuning=tuning)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(mu, ref))
+        timed = ""
+        if tuning in (None, {"face_slices": 1}):
+            dev_ms = device_ms(lambda: render_depth(*args, backface_cull=False, device=device,
+                                                    tuning=tuning), 20)
+            timed = f", device {dev_ms} ms (profiler)"
+        print(f"phase 2 no size limit, {f.shape[0]} faces at 100x100, 3 poses, every face "
+              f"drawn, render_depth {json.dumps(tuning)}: {plan['face_slices']} face slices "
+              f"of up to {plan['face_cap']} faces, tile {plan['band_rows']}x"
+              f"{plan['band_cols']}; covered {float((ref > 0).float().mean()):.3f}; depth "
+              f"bitwise equal {same}{timed} on {smi}")
+        if not (same and float((ref > 0).float().mean()) > 0.1):
+            failures.append(f"no size limit: {f.shape[0]} faces, render_depth {tuning}")
+
+
+def large_model_depth_args(device, seed=5):
+    """render_depth's inputs for the BOP evaluation's largest model
+    (synthcad object 2, 128,000 faces): 3 random rotations half a metre
+    away, in a 100x100 camera that the object spans about three quarters of,
+    as the evaluation's crop does (draw every face: ``backface_cull=False``)."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import quaternions as quat
+    from bayesianposeestimation.jl_tpu_torch.camera import CvCamera
+    from bayesianposeestimation.jl_tpu_torch.models.fused import mesh_tensors
+    from bayesianposeestimation.jl_tpu_torch.utils import bop
+
+    big = bop.load_mesh(BOP_DIR / "synthcad/models/obj_000002.ply")
+    v, f = mesh_tensors(big.vertices, big.faces, device)
+    cam = CvCamera(width=100, height=100, f_x=280.0, f_y=280.0, c_x=49.5, c_y=49.5,
+                   near=0.01, far=10.0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = quat.rand_quaternion(gen, (3,)).contiguous()
+    t = (torch.tensor([0.0, 0.0, 0.5], device=device)
+         + 0.02 * torch.randn((3, 3), generator=gen, device=device)).contiguous()
+    return v, f, cam, t, q
 
 
 def run_chain(device, n_steps=500, n_particles=100, seed=1):
@@ -1056,25 +1134,24 @@ def compare_errors(ours, ref):
     return bad, worst["adds"], worst["vsd"], near_total
 
 
-def render_depth_check(device, smi, rows, scene_rows):
-    """render_depth at the evaluation's shape (the 81,920-face model of
-    object 1, one image's estimates and its ground truth, a 100x100 crop,
-    every face drawn) against its plain version: coverage identical and
-    relative depth <= MU_REL_TOL; then timed. Returns (ok, timing row)."""
+def evaluation_depth_args(device):
+    """render_depth's inputs at the evaluation's shape: the 81,920-face model
+    of synthcad object 1, the JAX smc_mh estimates of scene 1's first image
+    of it and its ground truth, in the evaluation's 100x100 crop (draw every
+    face: ``backface_cull=False``)."""
     import numpy as np
     import torch
 
     from bayesianposeestimation.jl_tpu_torch import quaternions as quat
     from bayesianposeestimation.jl_tpu_torch.camera import crop_camera
-    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
-        render_depth,
-        render_depth_reference,
-    )
     from bayesianposeestimation.jl_tpu_torch.utils import bop
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact
 
     bopval = bop_val_script()
+    scene_rows = bop.bop_test_or_train(BOP_DIR, "synthcad", "val", 1)
+    rows = load_artifact(JAX_RAW / "dataset=synthcad,sampler=smc_mh,scene_id=1,testset=val.npz")
     g = next(r for r in scene_rows if r["obj_id"] == 1)
-    ests = [r for r in rows if (r["img_id"], r["obj_id"]) == (g["img_id"], 1)]
+    ests = [r for r in rows["result_rows"] if (r["img_id"], r["obj_id"]) == (g["img_id"], 1)]
     mesh = bop.load_mesh(g)
     verts = torch.as_tensor(mesh.vertices, device=device)
     faces = torch.as_tensor(mesh.faces, device=device)
@@ -1086,25 +1163,58 @@ def render_depth_check(device, smi, rows, scene_rows):
                                    device=device),
                    quat.matrix_to_quat(torch.as_tensor(np.asarray(g["gt_R"], np.float32),
                                                        device=device))[None]])
-    args = (verts, faces, cam, t.contiguous(), q.contiguous())
+    return verts, faces, cam, t.contiguous(), q.contiguous()
+
+
+def render_depth_check(device, smi):
+    """render_depth at the evaluation's shape (``evaluation_depth_args``)
+    against its plain version and against one block per pose
+    (``face_slices`` 1): both bitwise equal; then both plans timed. Returns
+    (ok, timing row of the automatic plan, the one-block plan's (ms, device
+    ms), the automatic plan's face slices)."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        launch_plan,
+        render_depth,
+        render_depth_reference,
+    )
+
+    args = evaluation_depth_args(device)
+    verts, faces, cam, t = args[:4]
+    one = {"face_slices": 1}
+    plan = launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width, t.shape[0],
+                       depth_only=True)
     d = render_depth(*args, backface_cull=False, device=device)
+    d1 = render_depth(*args, backface_cull=False, device=device, tuning=one)
     ref = render_depth_reference(*args, backface_cull=False)
     torch.cuda.synchronize()
     both = (d > 0) & (ref > 0)
     rel = float(((d - ref).abs() / ref.clamp(min=1e-30))[both].max())
-    same_cover = bool(torch.equal(d > 0, ref > 0))
+    bitwise, single = bool(torch.equal(d, ref)), bool(torch.equal(d, d1))
     sync = torch.cuda.synchronize
-    ms = time_ms(lambda: render_depth(*args, backface_cull=False, device=device), 50, sync)
+    times = {}
+    for name, tuning in (("auto", None), ("one", one), ("one again", one), ("auto again", None)):
+        run = functools.partial(render_depth, *args, backface_cull=False, device=device,
+                                tuning=tuning)
+        times[name] = (time_ms(run, 50, sync), device_ms(run, 20))
+    ms, dev_ms = min(times["auto"][0], times["auto again"][0]), times["auto"][1]
+    ms1, dev_ms1 = min(times["one"][0], times["one again"][0]), times["one"][1]
     plain_ms = time_ms(lambda: render_depth_reference(*args, backface_cull=False), 3, sync)
-    dev_ms = device_ms(lambda: render_depth(*args, backface_cull=False, device=device), 20)
     b_ms, b_by, ops, pairs = bound_ms(args, epilogue="depth")
-    print(f"phase 7a render_depth at the evaluation shape ({mesh.n_faces} faces, "
-          f"{cam.width}x{cam.height}, {t.shape[0]} poses, every face drawn): coverage identical "
-          f"{same_cover}, relative depth max {rel:.2e} (limit {MU_REL_TOL}); kernel {ms:.4f} ms "
-          f"(CUDA events over 50 calls), device {dev_ms} ms (profiler), plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.6f} ms ({b_by}, {ops / 1e6:.3f} M ops, {pairs} front-face "
-          f"triangle-pixel pairs), {share_of_bound(b_ms, ms, dev_ms)} on {smi}")
-    return (same_cover and rel <= MU_REL_TOL), (ms, dev_ms, plain_ms, b_ms, b_by, rel)
+    print(f"phase 7a render_depth at the evaluation shape ({faces.shape[0]} faces, "
+          f"{cam.width}x{cam.height}, {t.shape[0]} poses, every face drawn): "
+          f"{plan['face_slices']} face slices of up to {plan['face_cap']} faces "
+          f"({t.shape[0] * plan['face_slices']} blocks of {plan['threads']} threads, "
+          f"{plan['smem_bytes']} B of shared memory each); bitwise equal to the plain version "
+          f"{bitwise}, to one block per pose {single} (relative depth max {rel:.2e}); "
+          f"kernel {ms:.4f} ms (CUDA events over 50 calls), device {dev_ms} ms (profiler); one "
+          f"block per pose {ms1:.4f} ms, device {dev_ms1} ms (in the order split, one, one, "
+          f"split: {json.dumps(times)}); plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}, {ops / 1e6:.3f} M ops, {pairs} front-face triangle-pixel pairs), "
+          f"{share_of_bound(b_ms, ms, dev_ms)} on {smi}")
+    return (bitwise and single), (ms, dev_ms, plain_ms, b_ms, b_by, rel), (ms1, dev_ms1), \
+        plan["face_slices"]
 
 
 def bop_eval_parity(device, failures, smi):
@@ -1112,14 +1222,13 @@ def bop_eval_parity(device, failures, smi):
     synthcad val estimates (every scene and MCMC/SMC sampler) against the
     JAX package's checked-in errors, and the recall per sampler beside
     sampler_recall.csv. Returns the render_depth launches of the evaluation
-    and the timing row of render_depth at its shape."""
+    and, after its verdict, what render_depth_check returns."""
     import csv
 
     import numpy as np
 
     from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_depth
     from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
-    from bayesianposeestimation.jl_tpu_torch.utils import bop
     from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact, savename
 
     bopval = bop_val_script()
@@ -1165,12 +1274,11 @@ def bop_eval_parity(device, failures, smi):
         for k in ("vsd_recall", "adds_recall"):
             if abs(r[k] - float(want[k])) * r["n_gt"] > near + 1e-9:
                 failures.append(f"phase 7a {r['sampler']} {k}")
-    scene_rows = bop.bop_test_or_train(BOP_DIR, "synthcad", "val", 1)
-    raw = load_artifact(JAX_RAW / "dataset=synthcad,sampler=smc_mh,scene_id=1,testset=val.npz")
-    ok, timing = render_depth_check(device, smi, list(raw["result_rows"]), scene_rows)
+    ok, timing, one_block, slices = render_depth_check(device, smi)
     if not ok:
-        failures.append("phase 7a render_depth vs plain at the evaluation shape")
-    return launches, timing
+        failures.append("phase 7a render_depth vs plain and one block per pose at the "
+                        "evaluation shape")
+    return launches, timing, one_block, slices
 
 
 class RunnerLog:
@@ -1500,19 +1608,28 @@ def main() -> int:
     forced_plan_check(track_args, "the tracking shape", dev, failures)
     forced_plan_check(flagship, "the bench shape", dev, failures)
     background_path_check(track_args, dev, failures)
-    no_size_limit_check(dev, failures, flagship[0], flagship[1])
-    for bad in ({"face_budget": 0}, {"pixel_budget": -1}, {"threads": 100}):
+    no_size_limit_check(dev, failures, flagship[0], flagship[1], smi)
+    for bad in ({"face_budget": 0}, {"pixel_budget": -1}, {"threads": 100},
+                {"face_slices": 0}):
         try:
             render_depth(*flagship[:5], device=dev, tuning=bad)
             failures.append(f"render_depth accepted tuning {bad}")
         except (TypeError, ValueError) as e:
             print(f"phase 2 rejected tuning {bad}: {e}")
+    try:  # a score kernel takes one block per pose
+        render_score(*flagship, device=dev, tuning={"face_slices": 2})
+        failures.append("render_score accepted face_slices")
+    except ValueError as e:
+        print(f"phase 2 render_score rejected face_slices: {e}")
     print(f"phase 2 launch-plan and size checks took {time.perf_counter() - t0:.1f} s")
 
     # timing at the tracking shape: the depth-only kernel, the fixed-o score
     # with and without the image, and the fixed-o score at the bootstrap
     # filter's 1250 poses
     track_timing = {}
+    track_slices = cuda_raster.launch_plan(
+        track_args[0].shape[0], track_args[1].shape[0], track_args[2].height,
+        track_args[2].width, track_args[3].shape[0], depth_only=True)["face_slices"]
     big_args = tracking_kernel_inputs(dev, n_poses=1250)
     for name, args, fn, plain, bound_kw in (
             ("render_depth", track_args,
@@ -1572,7 +1689,8 @@ def main() -> int:
     for n, row in bop_rows.items():
         if not row[5]["ok"]:
             failures.append(f"phase 7 render_score at the BOP shape, {n} poses")
-    eval_launches, eval_timing = bop_eval_parity(dev, failures, smi)
+    eval_launches, eval_timing, eval_one_block, eval_slices = bop_eval_parity(dev, failures,
+                                                                              smi)
     phase_done("7a")
     bop_launches = bop_inference(dev, failures, smi)
     phase_done("7b")
@@ -1609,7 +1727,8 @@ def main() -> int:
             "replaces": replaces, "launches": n_launch, "path": path, "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "share_of_bound": b_ms / dev_ms if dev_ms else None,
-            "share_of_bound_paced": b_ms / ms, "library_ms": None})
+            "share_of_bound_paced": b_ms / ms, "library_ms": None,
+            **({"face_slices": track_slices} if name == "render_depth" else {})})
     ms, dev_ms, plain_ms, b_ms, b_by, rel = eval_timing
     entries.append({
         "name": "render_depth 81920 faces 100x100 (evaluation)", "route": "cuda",
@@ -1617,7 +1736,9 @@ def main() -> int:
         "launches": eval_launches, "path": "phase 7a evaluation of the JAX estimates",
         "max_abs_err": rel, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / dev_ms if dev_ms else None,
-        "share_of_bound_paced": b_ms / ms, "library_ms": None})
+        "share_of_bound_paced": b_ms / ms, "library_ms": None, "face_slices": eval_slices,
+        "one_block_per_pose_ms": eval_one_block[0],
+        "one_block_per_pose_device_ms": eval_one_block[1]})
     for sampler, poses in (("smc_mh", (100,)), ("mh_sampler", (1,)), ("mtm_sampler", (10, 9))):
         for n in poses:
             ms, dev_ms, plain_ms, b_ms, b_by, res = bop_rows[n]

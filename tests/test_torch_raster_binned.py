@@ -275,6 +275,82 @@ def test_launch_plan_rejects_bad_tuning_and_the_cpu_ignores_tuning():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+@pytest.mark.parametrize("n_verts,n_faces,h,w,n_poses,slices,face_cap", [
+    # the BOP evaluation: 3 poses of the 81,920-face model at 100x100 -> about
+    # two blocks per SM (88), 931 faces each, one chunk beside the whole image
+    (41_000, 81_920, 100, 100, 3, 88, 931),
+    # 5 poses of the 128,000-face model: 53 slices of 2,416 faces would not
+    # fit one chunk (2,194), so 59 slices of 2,170
+    (64_000, 128_000, 100, 100, 5, 59, 2170),
+    # from half the SMs on the poses take one block each: the bench shape,
+    # the tracking stream's synthesis and the tracking shape (today's launch)
+    (642, 1280, 30, 30, 100, 1, 1280), (642, 1280, 60, 80, 120, 1, 1280),
+    (130, 256, 60, 80, 600, 1, 256),
+    (642, 1280, 30, 30, 65, 5, 256),
+    (130, 256, 60, 80, 24, 1, 256),  # a slice keeps at least 256 faces
+    (642, 1280, 480, 640, 8, 5, 256),
+    (8, 12, 16, 16, 1, 1, 12), (0, 0, 4, 4, 1, 1, 1)])
+def test_launch_plan_splits_a_few_poses_faces_over_blocks(n_verts, n_faces, h, w, n_poses,
+                                                          slices, face_cap):
+    plan = launch_plan(n_verts, n_faces, h, w, n_poses, depth_only=True)
+    assert (plan["face_slices"], plan["face_cap"]) == (slices, face_cap)
+    assert plan["smem_bytes"] + cuda_raster._SMEM_STATIC <= 232448
+    assert plan["face_cap"] == max(1, -(-n_faces // slices))  # a slice is one chunk
+    if slices > 1:  # never fewer blocks than fill the card, unless slices get small
+        assert n_poses < cuda_raster._SPLIT_BELOW
+        assert (n_poses * slices >= cuda_raster._POSES_FILL
+                or -(-n_faces // (slices + 1)) < cuda_raster._SLICE_FACES)
+    # the score kernels' plan is unchanged: one block per pose
+    score = launch_plan(n_verts, n_faces, h, w, n_poses)
+    assert score["face_slices"] == 1 and score["threads"] == plan["threads"]
+
+
+def test_launch_plan_rejects_bad_face_slices():
+    for bad in (0, -2):
+        with pytest.raises(ValueError):
+            launch_plan(642, 1280, 30, 30, 4, face_slices=bad, depth_only=True)
+    with pytest.raises(ValueError):  # a score kernel takes one block per pose
+        launch_plan(642, 1280, 30, 30, 4, face_slices=2)
+    with pytest.raises(ValueError):  # more blocks than a launch can have
+        launch_plan(642, 1280, 30, 30, 2**20, face_slices=2**12, depth_only=True)
+    forced = launch_plan(642, 1280, 30, 30, 600, face_slices=7, face_budget=50,
+                         depth_only=True)
+    assert (forced["face_slices"], forced["face_cap"]) == (7, 50)
+
+
+@pytest.mark.parametrize("mesh_name,w,h,face_slices,face_budget,pixel_budget", [
+    ("monkey", 30, 30, 1, None, None), ("monkey", 30, 30, 2, None, None),
+    ("monkey", 30, 30, 7, None, None), ("monkey", 80, 60, 64, None, None),
+    ("cube", 16, 16, 40, None, None),  # more slices than faces: some are empty
+    ("cube", 23, 37, 5, 1, 50),  # slices, one-face chunks and tiles together
+    ("monkey", 80, 60, 9, 33, 160), ("monkey", 23, 37, 3, 100, 81)])
+def test_face_slices_give_the_same_image(mesh_name, w, h, face_slices, face_budget,
+                                         pixel_budget):
+    args = _scene(mesh_name, w, h, n=3, seed=4)
+    mu = render_mu_reference(*args)
+    assert float((mu > 0).float().mean()) > 0.03
+    assert torch.equal(render_mu_binned_reference(*args, face_slices=face_slices,
+                                                  face_budget=face_budget,
+                                                  pixel_budget=pixel_budget), mu)
+
+
+def test_face_slices_of_a_large_mesh_give_the_same_image():
+    """A 5,120-face mesh, 3 poses at 64x64, every face drawn: the automatic
+    plan splits each pose into 20 slices of 256 faces."""
+    sphere = mesh_io.icosphere_mesh(0.1, 4)
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(3, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t = (np.array([0.0, 0.0, 0.3]) + 0.02 * rng.normal(size=(3, 3))).astype(np.float32)
+    args = (torch.as_tensor(sphere.vertices), torch.as_tensor(sphere.faces),
+            _camera(64, 64, 60.0), torch.as_tensor(t), torch.as_tensor(q))
+    plan = launch_plan(args[0].shape[0], args[1].shape[0], 64, 64, 3, depth_only=True)
+    assert plan["face_slices"] == 20
+    mu = render_mu_reference(*args, backface_cull=False)
+    assert float((mu > 0).float().mean()) > 0.2
+    assert torch.equal(render_mu_binned_reference(*args, backface_cull=False), mu)
+
+
 def test_binned_reference_matches_pallas_render_depth():
     """The binned algorithm against the TPU kernel run in interpret mode, at
     the tolerances of tests/test_torch_render_depth.py (the two rasterisers
@@ -297,6 +373,27 @@ def test_binned_reference_matches_pallas_render_depth():
     assert np.mean((mu_t > 0) != (mu_j > 0)) < 5e-3
     both = (mu_t > 0) & (mu_j > 0)
     assert np.percentile(np.abs(mu_t[both] - mu_j[both]) / mu_j[both], 99) < 1e-4
+
+
+def test_plan_arguments_match_the_kernel_source():
+    """The plan crosses from Python to CUDA as positional integers: the C
+    entry points' parameters and ``struct Plan`` take them in the order of
+    ``_PLAN_ARGS`` (score kernels) and ``_DEPTH_PLAN_ARGS`` (depth-only)."""
+    import re
+
+    src = (Path(cuda_raster.__file__).resolve().parents[1] / "csrc" / "render_score.cu").read_text()
+
+    def params(entry):
+        sig = re.search(rf"extern \"C\" int {entry}\((.*?)\)\s*{{", src, re.S).group(1)
+        return [p.split()[-1].lstrip("*") for p in sig.split(",")]
+
+    assert params("bpe_render_score")[-6:-1] == list(cuda_raster._PLAN_ARGS)
+    assert params("bpe_render_depth")[-7:-1] == list(cuda_raster._DEPTH_PLAN_ARGS)
+    assert params("bpe_render_depth")[-1] == "stream"
+    plan = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*int ([\w, ]+);", plan, re.M)
+    names = [n.strip() for f in fields for n in f.split(",")]
+    assert names == list(cuda_raster._DEPTH_PLAN_ARGS[1:])  # threads is the launch's own
 
 
 def test_box_constants_match_the_kernel_source():
