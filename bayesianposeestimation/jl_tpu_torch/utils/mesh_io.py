@@ -2,7 +2,8 @@
 
 A copy of the parts of ``jl_tpu/utils/mesh_io.py`` the port's main paths use
 (``Mesh``, the cube, icosphere and "monkey" blob generators,
-``mesh_diameter`` and ``fix_winding``); the port keeps its own copy rather than importing the JAX
+``mesh_diameter``, ``fix_winding`` and the Wavefront OBJ reader
+``load_obj``); the port keeps its own copy rather than importing the JAX
 package. Devices only ever see dense ``(verts, faces)`` tensors.
 """
 
@@ -10,7 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["Mesh", "cube_mesh", "icosphere_mesh", "monkey_mesh", "mesh_diameter", "fix_winding"]
+__all__ = ["Mesh", "cube_mesh", "icosphere_mesh", "monkey_mesh", "mesh_diameter", "fix_winding",
+           "load_obj"]
 
 
 class Mesh:
@@ -139,3 +141,20 @@ def fix_winding(mesh: Mesh) -> Mesh:
     if svol < 0:
         return Mesh(mesh.vertices, mesh.faces[:, ::-1])
     return mesh
+
+
+def load_obj(path, scale: float = 1.0) -> Mesh:
+    """Minimal Wavefront OBJ reader: ``v`` and ``f`` records, polygons fan
+    triangulated, vertices scaled by ``scale``; the faces are reoriented to
+    outward winding (``fix_winding``) so back-face culling stays exact."""
+    verts, faces = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+            elif line.startswith("f "):
+                idx = [int(p.split("/")[0]) - 1 for p in line.split()[1:]]
+                for i in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[i], idx[i + 1]])
+    return fix_winding(Mesh(np.asarray(verts, np.float32) * scale, np.asarray(faces, np.int32)))

@@ -7,7 +7,7 @@
     python3 chip_profile.py evaluation # the BOP evaluation with and without the depth split
 
 The benchmark chain is bench.py's configuration through the port
-(chip_smoke.run_chain: monkey mesh, 30x30, 100 particles, tempered SMC-MH,
+(bench_torch.run_chain: monkey mesh, 30x30, 100 particles, tempered SMC-MH,
 association posterior); ``tracking`` is scripts/torch_ros_particle_filter.py's
 configuration (80x60, 256-face mesh, 120-frame synthetic stream; coordinate
 filter with 600 particles, bootstrap filter with 1250). Each runs once
@@ -99,7 +99,9 @@ def profile_chain(card):
     from bayesianposeestimation.jl_tpu_torch.samplers import sample_chain
 
     n_steps, n_particles = 500, 100
-    _, _, post, wall, evals, launches, _ = chip_smoke.run_chain("cuda", n_steps, n_particles)
+    _, _, post, walls, evals, launches, _ = chip_smoke.bench().run_chain("cuda", n_steps,
+                                                                         n_particles)
+    wall, evals, launches = walls[-1], evals[-1], launches[-1]
     sampler = smc_mh(post.params, post)
     prof_wall, busy_s, n_kernels, top, raster = profiled(
         lambda: sample_chain(3, post, sampler, n_steps, n_particles, device="cuda"))

@@ -11,7 +11,8 @@ diameter, VSD < 0.3) are paired: the gts only one side gets right carry all
 the information about a difference, and an exact two-sided binomial test on
 them (``scripts/paired_tests.py``'s test, between the two packages instead of
 between samplers) says whether it is chance. Prints one line per metric and
-writes ``paired_vs_jax.csv`` into the port's directory. Reads files only: no
+writes them to ``paired_vs_jax.csv`` in the port's directory, where the rows
+of other samplers stay. Reads files only: no
 device, and nothing of the JAX package.
 """
 
@@ -88,10 +89,14 @@ def main():
               f"{r['only_port']}, only JAX right {r['only_jax']}; exact McNemar p "
               f"{r['p_value']:.4f}")
     out = Path(args.port_dir) / "paired_vs_jax.csv"
+    kept = []
+    if out.exists():
+        with open(out, newline="") as fh:
+            kept = [r for r in csv.DictReader(fh) if r["sampler"] != args.sampler]
     with open(out, "w", newline="") as fh:
         writer = csv.DictWriter(fh, fieldnames=["sampler", *rows[0]])
         writer.writeheader()
-        writer.writerows({"sampler": args.sampler, **r} for r in rows)
+        writer.writerows(kept + [{"sampler": args.sampler, **r} for r in rows])
     print(f"wrote {out}")
 
 

@@ -2,14 +2,21 @@
 PyTorch/CUDA port (counterpart of ``scripts/ros_particle_filter.py``).
 
 Bootstrap (1250 particles) and coordinate (600) particle filters at 80x60 px
-against a 90 Hz depth sensor. The stream is synthetic: an orbiting, bobbing
-monkey mesh rendered to depth on the card by the port's ``render_depth``
-kernel, over a background plane, with sensor noise and speckle dropout;
-``--events`` adds a transient occluder and three dropped frames that the
-tracker's model knows nothing of. The tracker runs on the 256-face decimation
-of the mesh the stream is rendered from.
+against a 90 Hz depth sensor. ``--stream x.npz`` reads a recorded depth
+stream (``experiment_io.save_depth_stream``'s format; ``convert_rosbag``
+makes one from a ROS1 bag) with ``--mesh y.obj`` as the object's model (the
+0.08 m monkey without it); frames and intrinsics of another size are
+resized to ``--width`` x ``--height``, the priors come from the stream's
+first ground-truth pose (or (0, 0, 1) and the identity without one), and
+errors and the gate need its ground truth. Without ``--stream`` the stream
+is synthetic: an orbiting, bobbing monkey mesh rendered to depth on the card
+by the port's ``render_depth`` kernel, over a background plane, with sensor
+noise and speckle dropout; ``--events`` adds a transient occluder and three
+dropped frames that the tracker's model knows nothing of. The tracker runs
+on the 256-face decimation of its mesh.
 
     python scripts/torch_ros_particle_filter.py --filter coordinate --n-frames 120
+    python scripts/torch_ros_particle_filter.py --stream stream.npz --mesh object.obj
 
 Runs on the CUDA device unless ``--device cpu`` is given (slow: the CPU runs
 the kernels' plain versions; use a short stream and few particles).
@@ -42,7 +49,10 @@ from bayesianposeestimation.jl_tpu_torch.parameters import Parameters  # noqa: E
 from bayesianposeestimation.jl_tpu_torch.utils import mesh_io  # noqa: E402
 from bayesianposeestimation.jl_tpu_torch.utils.bop import depth_resize  # noqa: E402
 from bayesianposeestimation.jl_tpu_torch.utils.decimate import decimate  # noqa: E402
-from bayesianposeestimation.jl_tpu_torch.utils.experiment_io import save_tum  # noqa: E402
+from bayesianposeestimation.jl_tpu_torch.utils.experiment_io import (  # noqa: E402
+    load_depth_stream,
+    save_tum,
+)
 
 SENSOR_HZ = 90.0
 # particles per filter, and the proposal scales (sigma_t, sigma_r). The
@@ -105,10 +115,20 @@ def filter_params(kind, width, height, n_particles=None, device="cuda") -> Param
                       device=str(device))
 
 
+def recorded_stream(path, mesh_path="monkey"):
+    """(stream, mesh) of a recorded depth stream: the ``.npz`` at ``path``
+    and the OBJ model at ``mesh_path``, or the 0.08 m monkey if that names
+    no ``.obj``."""
+    mesh = (mesh_io.load_obj(mesh_path) if str(mesh_path).endswith(".obj")
+            else mesh_io.monkey_mesh(0.08))
+    return load_depth_stream(path), mesh
+
+
 def tracking_setup(stream, mesh, params, device="cuda", n_faces=256):
     """The tracker's inputs: the experiment (decimated mesh, camera scaled to
-    the render size, priors from the first ground-truth pose) on the CPU and
-    the stream on ``device`` with invalid pixels +inf."""
+    the render size, priors from the first ground-truth pose, or (0, 0, 1)
+    and the identity for a stream without one) on the CPU and the stream on
+    ``device`` with invalid pixels +inf."""
     mesh = decimate(mesh, n_faces)
     cam = stream["camera"]
     if (cam.width, cam.height) != (params.width, params.height):
@@ -116,9 +136,11 @@ def tracking_setup(stream, mesh, params, device="cuda", n_faces=256):
     depth = stream["depth"]
     if depth.shape[1:] != (params.height, params.width):
         depth = np.stack([depth_resize(d, params.width, params.height) for d in depth])
+    prior_t = stream["gt_t"][0] if "gt_t" in stream else np.asarray([0.0, 0.0, 1.0], np.float32)
+    prior_r = (stream["gt_q"][0] if "gt_q" in stream
+               else np.asarray([1.0, 0.0, 0.0, 0.0], np.float32))
     experiment = convert.experiment_from_numpy(
-        cam, mesh.vertices, mesh.faces, params.o_mask_is, stream["gt_t"][0], depth[0],
-        prior_r=stream["gt_q"][0])
+        cam, mesh.vertices, mesh.faces, params.o_mask_is, prior_t, depth[0], prior_r=prior_r)
     return experiment, convert.stream_from_numpy(depth, device), mesh
 
 
@@ -203,19 +225,28 @@ def main():
     ap.add_argument("--width", type=int, default=80)
     ap.add_argument("--height", type=int, default=60)
     ap.add_argument("--n-frames", type=int, default=120)
+    ap.add_argument("--stream", default=None,
+                    help="a recorded .npz depth stream (see experiment_io.convert_rosbag)")
+    ap.add_argument("--mesh", default="monkey",
+                    help="the object's .obj model for --stream (default the 0.08 m monkey)")
     ap.add_argument("--events", action="store_true",
-                    help="inject a transient occluder and dropped frames into the stream "
-                         "and report recovery statistics")
+                    help="inject a transient occluder and dropped frames into the synthetic "
+                         "stream and report recovery statistics")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-json", default=None, help="write the fps/error record here")
     ap.add_argument("--export-tum", default=None,
                     help="write the tracked and true trajectories as <path>.tum / <path>_gt.tum")
     args = ap.parse_args()
+    if args.stream and args.events:
+        ap.error("--events applies to the synthetic stream, not to --stream")
 
     params = filter_params(args.filter, args.width, args.height, args.n_particles, args.device)
-    stream, mesh = synthetic_stream(args.n_frames, args.width, args.height, seed=args.seed,
-                                    with_events=args.events, device=args.device)
+    if args.stream:
+        stream, mesh = recorded_stream(args.stream, args.mesh)
+    else:
+        stream, mesh = synthetic_stream(args.n_frames, args.width, args.height, seed=args.seed,
+                                        with_events=args.events, device=args.device)
     experiment, depth, _ = tracking_setup(stream, mesh, params, args.device)
     pf = coordinate_pf if args.filter == "coordinate" else bootstrap_pf
     outs, _, first, runs = timed_runs(pf, fused_pf_posterior("simple"), params, experiment,
@@ -229,17 +260,23 @@ def main():
           f"(median run; sensor: {SENSOR_HZ} Hz)")
 
     est_t, est_q = pose_estimates(outs)
+    has_gt = "gt_t" in stream
     if args.export_tum:
         base = Path(args.export_tum)
         base.parent.mkdir(parents=True, exist_ok=True)
-        stamps = np.arange(depth.shape[0]) / SENSOR_HZ
+        stamps = stream.get("stamps")
+        if stamps is None:
+            stamps = np.arange(depth.shape[0]) / SENSOR_HZ
         save_tum(str(base) + ".tum", stamps[1:], est_t, est_q)
-        save_tum(str(base) + "_gt.tum", stamps, stream["gt_t"], stream["gt_q"])
-        print(f"wrote {base}.tum and {base}_gt.tum")
-    res = tracking_errors(est_t, est_q, stream, args.events)
-    print(f"mean translation error {res['mean_error_mm']:.2f} mm (median "
-          f"{res['median_error_mm']:.2f} mm); median rotation error "
-          f"{res['median_rot_deg']:.2f} deg")
+        if has_gt:
+            save_tum(str(base) + "_gt.tum", stamps, stream["gt_t"], stream["gt_q"])
+        print(f"wrote {base}.tum" + (f" and {base}_gt.tum" if has_gt else ""))
+    res = {"ok": True, "median_error_mm": None, "median_rot_deg": None, "recovery": None}
+    if has_gt:
+        res = tracking_errors(est_t, est_q, stream, args.events)
+        print(f"mean translation error {res['mean_error_mm']:.2f} mm (median "
+              f"{res['median_error_mm']:.2f} mm); median rotation error "
+              f"{res['median_rot_deg']:.2f} deg")
     if res["recovery"]:
         print(f"events: {json.dumps(res['recovery'])}")
     record = {

@@ -206,7 +206,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    PORT.parents[1] / "chip_smoke.py", PORT.parents[1] / "chip_profile.py"],
+    PORT.parents[1] / "chip_smoke.py", PORT.parents[1] / "chip_profile.py",
+    PORT.parents[1] / "bench_torch.py"] + sorted((PORT.parents[1] / "scripts").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(PORT.parents[1])))
 def test_port_imports_no_jax(path):
     """Checked on the source text, so it does not depend on what some other
