@@ -2,7 +2,7 @@
 """Headline benchmark of the PyTorch/CUDA port: rendered+scored pose
 hypotheses per second on one card.
 
-    python3 bench_torch.py [--n-steps 500] [--n-particles 100] [--trials 3]
+    python3 bench_torch.py [--n-steps 500] [--n-particles 100]
 
 The counterpart of ``bench.py``'s ``measure()`` with the same configuration:
 the 1280-face ``monkey_mesh(0.08)``, the 640x480 camera cropped to 30x30
@@ -11,8 +11,8 @@ torch generator (JAX's threefry draw cannot be reproduced, so the gt pose
 differs from ``bench.py``'s), observation noise 0.01, ``o_mask_is`` (0.7) as the
 pixel prior, and tempered SMC-MH (``smc_mh``) over the fused association
 posterior with ``proposal_sigma_r = (0.5, 0.5, 0.5)``, 100 particles x 500
-steps. One warm-up chain, then the best of ``--trials`` (at least 3) timed
-chains, each ending in ``torch.cuda.synchronize()``.
+steps. One warm-up chain, then the best of 3 timed chains, each ending in
+``torch.cuda.synchronize()``.
 
 Prints exactly one JSON line on stdout with ``bench.py``'s keys (``metric``,
 ``value``, ``unit``, ``vs_baseline`` against 1e5 hypotheses/s) and
@@ -40,6 +40,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 BASELINE_HYP_PER_SEC = 1.0e5
+TRIALS = 3  # timed chains after the warm-up; the headline is the best of them
 
 
 def bench_scene(device, width=30, height=30, mesh_name="monkey", seed=0):
@@ -153,12 +154,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-steps", type=int, default=500)
     ap.add_argument("--n-particles", type=int, default=100)
-    ap.add_argument("--trials", type=int, default=3, help="timed chains (at least 3)")
     ap.add_argument("--allow-cpu", action="store_true",
                     help="run on the CPU when there is no CUDA device (BENCH_ALLOW_CPU=1 too)")
     args = ap.parse_args(argv)
-    if args.trials < 3:
-        ap.error("--trials must be at least 3")
     import torch
 
     if torch.cuda.is_available():
@@ -170,8 +168,8 @@ def main(argv=None) -> int:
                            "pass --allow-cpu to run on the CPU")
 
     outs, _, _, seconds, evaluations, launches, _ = run_chain(
-        device, args.n_steps, args.n_particles, trials=args.trials)
-    want_launches = evaluations if device == "cuda" else [0] * args.trials
+        device, args.n_steps, args.n_particles, trials=TRIALS)
+    want_launches = evaluations if device == "cuda" else [0] * TRIALS
     finite = all(bool(torch.isfinite(v).all()) for v in outs.values())
     record = {"device": name, "seconds": seconds, "evaluations": evaluations,
               "launches": launches, "expected_evaluations": args.n_steps, "finite": finite}

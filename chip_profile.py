@@ -94,13 +94,13 @@ def report(result, wall, prof_wall, busy_s, n_kernels, n_units, unit, top, raste
 
 
 def profile_chain(card):
-    import chip_smoke
+    from bench_torch import run_chain
+
     from bayesianposeestimation.jl_tpu_torch.models.experiment_samplers import smc_mh
     from bayesianposeestimation.jl_tpu_torch.samplers import sample_chain
 
     n_steps, n_particles = 500, 100
-    _, _, post, walls, evals, launches, _ = chip_smoke.bench().run_chain("cuda", n_steps,
-                                                                         n_particles)
+    _, _, post, walls, evals, launches, _ = run_chain("cuda", n_steps, n_particles)
     wall, evals, launches = walls[-1], evals[-1], launches[-1]
     sampler = smc_mh(post.params, post)
     prof_wall, busy_s, n_kernels, top, raster = profiled(

@@ -69,18 +69,22 @@ Phases (each prints its results; any failure exits non-zero):
      digit, render_depth at its evaluation shape (320 faces, 100x100)
      bitwise and timed, then smc_mh inference on scene 1 at 0.5 s per pose
      (launches = evaluations, finite estimates, best log-likelihood against
-     the plain version);
+     the plain version) and render_score[association] at that inference's
+     shape against its plain version, timed;
   11. scripts/torch_inference_time.py's grid at 25 / 50 / 100 px x 2 / 100 /
      1000 particles (ms per step printed), and render_score[association] at
      1000 poses x 100x100 against its plain version with phase 2's
      tolerances, timed;
   12. a recorded stream: the tracking scene's 120 frames rendered at 640x480
-     by render_depth (bitwise against its plain version, timed), written as
+     by render_depth (written over NaN, bitwise against its plain version,
+     timed, its device time required), written as
      a ROS1 bag by the port's rosbag writer (16UC1 images, camera info,
      ground-truth poses), converted by convert_rosbag and tracked through
      scripts/torch_ros_particle_filter.py's --stream path at 80x60 (the
      model read from an OBJ) by the coordinate (600) and bootstrap (1250)
-     filters under the script's gates with launches = evaluations; the spec
+     filters under the script's gates with launches = evaluations, and
+     render_score[fixed_o] on the coordinate filter's final particles and
+     the last frame against its plain version, timed; the spec
      fixture bag tests/fixtures/rosbag/tracker.bag read; phase 3's final
      SmcState saved by utils.checkpoint and restored onto the card bitwise.
 Every phase prints the seconds since the start when it ends.
@@ -113,6 +117,10 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+# the benchmark's scene, chain and likelihood-evaluation counter, which phase 3
+# shares with bench_torch.py (standard library only at import)
+from bench_torch import EvaluationCount, bench_scene, run_chain
 
 REPO = Path(__file__).resolve().parent
 PKG = "bayesianposeestimation/jl_tpu_torch"
@@ -151,14 +159,6 @@ TUNED_SETS = {
 }
 
 
-def bench():
-    """bench_torch.py beside this script: the benchmark's scene, chain and
-    likelihood-evaluation counter, which phase 3 shares with it."""
-    import bench_torch
-
-    return bench_torch
-
-
 def kernel_inputs(device, width, height, mesh_name, n_poses=100, seed=0):
     """Poses scattered around the scene's ground truth (2 cm, ~0.3 rad)."""
     import torch
@@ -166,7 +166,7 @@ def kernel_inputs(device, width, height, mesh_name, n_poses=100, seed=0):
     from bayesianposeestimation.jl_tpu_torch import quaternions as quat
     from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
 
-    exp, gt_t, gt_q, gen = bench().bench_scene(device, width, height, mesh_name, seed)
+    exp, gt_t, gt_q, gen = bench_scene(device, width, height, mesh_name, seed)
     t = gt_t + 0.02 * torch.randn((n_poses, 3), generator=gen, device=device)
     q = quat.qplus(gt_q.expand(n_poses, 4),
                    0.3 * torch.randn((n_poses, 3), generator=gen, device=device))
@@ -219,25 +219,48 @@ def time_ms(fn, n, sync):
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n):
-    """Mean device time (ms) per call of the kernels of csrc/render_score.cu
+def device_ms(fn, n, tries=3):
+    """Mean device time (ms) per launch of the kernels of csrc/render_score.cu
     that ``n`` calls of ``fn`` launch (the poses' kernel and, for a score,
     the small background kernel before it; for a split depth render the
-    image's zeroing and the resolve kernel after it), from torch.profiler;
-    None if it records no such kernel."""
+    image's zeroing and the resolve kernel after it), from torch.profiler.
+    Late in a long process the profiler drops some launches of a session,
+    now and then all of them, so the recorded kernels' time is divided by
+    the recorded launches (one ``render_score_kernel`` each), not by ``n``;
+    a session that holds fewer than a quarter of its launches is taken
+    again, up to ``tries`` times. None if none holds enough."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and (is_raster_kernel(e.name) or e.name.startswith("Memset"))]
-    return sum(us) / n / 1e3 if us else None
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (is_raster_kernel(e.name) or e.name.startswith("Memset"))]
+        launches = sum("render_score_kernel" in e.name for e in kernels)
+        if launches < n:
+            print(f"device_ms: profiler session {attempt} of {tries} recorded {launches} of {n} "
+                  f"kernel launches")
+        if launches >= max(1, n // 4):
+            return sum(e.time_range.elapsed_us() for e in kernels) / launches / 1e3
+    return None
+
+
+def on_nan_block(fn):
+    """``fn()`` twice: the first output is filled with NaN and freed, and the
+    caching allocator places the second on the same block, so that a
+    compared image cannot be an earlier image left in freed memory. Returns
+    (the second output, whether it lies on the NaN-filled block)."""
+    first = fn()
+    ptr = first.data_ptr()
+    first.fill_(float("nan"))
+    del first
+    out = fn()
+    return out, out.data_ptr() == ptr
 
 
 def is_raster_kernel(name):
@@ -299,6 +322,34 @@ def share_of_bound(b_ms, ms, dev_ms):
     by_device = f"{100 * b_ms / dev_ms:.2f} %" if dev_ms else "not measured"
     return (f"share of bound {by_device} by device time, {100 * b_ms / ms:.2f} % by "
             f"launch-paced time")
+
+
+def score_row(args, device, label, smi, variant="association", epilogue="association",
+              calls=(200, 5, 50)):
+    """render_score on ``args`` against its plain version (``compare_kernel``),
+    then timed: CUDA events over ``calls[0]`` launches, the plain version over
+    ``calls[1]`` calls, profiler device time over ``calls[2]``; the bound.
+    Prints one line under ``label``; returns (timing row, comparison)."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        render_score,
+        render_score_reference,
+    )
+
+    res = compare_kernel(args, device, variant)
+    sync = torch.cuda.synchronize
+    ms = time_ms(lambda: render_score(*args, variant=variant, device=device), calls[0], sync)
+    plain_ms = time_ms(lambda: render_score_reference(*args, variant=variant), calls[1], sync)
+    dev_ms = device_ms(lambda: render_score(*args, variant=variant, device=device), calls[2])
+    b_ms, b_by, ops, pairs = bound_ms(args, epilogue)
+    print(f"{label} ({args[1].shape[0]} faces, {args[2].width}x{args[2].height}, "
+          f"{args[3].shape[0]} poses): ok {res['ok']}, max |d| {res['max_abs_err']:.5f}, median "
+          f"rel {res['median_rel']:.2e}; kernel {ms:.4f} ms (CUDA events over {calls[0]} "
+          f"calls), device {dev_ms} ms (profiler), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}, {ops / 1e6:.3f} M ops, {pairs} live triangle-pixel pairs), "
+          f"{share_of_bound(b_ms, ms, dev_ms)} on {smi}")
+    return (ms, dev_ms, plain_ms, b_ms, b_by), res
 
 
 def forced_plan_check(args, label, device, failures):
@@ -719,7 +770,7 @@ def per_image_sweep(device, failures, n_particles=100, seed=11):
     # feedback pass (smc_bop_val.py:201-235): the probe sees the best of its
     # repeats, a real run the typical host time and the per-image build; if
     # three real runs overshoot, re-derive the count from their overhead
-    with bench().EvaluationCount() as probe_evals:
+    with EvaluationCount() as probe_evals:
         run = runner("association", n_steps)
         timed_run(run, probe_evals, seed + 1000, *images[0])  # warm-up
         wall_probe = float(np.mean([timed_run(run, probe_evals, seed + 1001, *images[0])[2]
@@ -736,7 +787,7 @@ def per_image_sweep(device, failures, n_particles=100, seed=11):
                "feedback_wall_s": wall_probe, "wall_s": {}, "t_err_mm": {}, "r_err_rad": {}}
     render_score.launches = 0
     render_score.launches_by.clear()
-    with bench().EvaluationCount() as evals:
+    with EvaluationCount() as evals:
         runners = {}
         for variant in SCORE_VARIANTS:
             run = runner(variant, n_steps)
@@ -967,7 +1018,8 @@ def track_filter(kind, stream, mesh, device, failures, smi, evals, width=80, hei
     warm-up and three timed runs, the script's error gate, launches =
     likelihood evaluations = 4 (1 + k (F - 1)) (k = 2 for the coordinate
     filter), the final densities against the plain version on the CPU.
-    Returns the render_score launches."""
+    Returns (the render_score launches, the kernel's arguments for the final
+    particles on the last frame)."""
     import statistics
 
     import numpy as np
@@ -1022,7 +1074,10 @@ def track_filter(kind, stream, mesh, device, failures, smi, evals, width=80, hei
                         f"vs expected {expected}")
     if not dens_ok:
         failures.append(f"phase {phase} {tag}: densities vs plain version")
-    return launches
+    post = posterior_fn(params, experiment.with_depth_image(depth[-1]), device=device)
+    args = (post.verts, post.faces, post.camera, s.variables["t"].contiguous(),
+            s.variables["r"].contiguous(), post.depth, post.prior_o, params)
+    return launches, args
 
 
 def tracking_phase(device, failures, smi, n_frames=TRACK_FRAMES, width=80, height=60,
@@ -1041,7 +1096,7 @@ def tracking_phase(device, failures, smi, n_frames=TRACK_FRAMES, width=80, heigh
     print(f"phase 6 streams: 2 x {n_frames} frames at {width}x{height} rendered by render_depth "
           f"({render_depth.launches} launches) in {time.perf_counter() - t0:.2f} s; object "
           f"covers {float((streams[False][0]['depth'][0] < 1.0).mean()):.3f} of frame 0")
-    with bench().EvaluationCount() as evals:
+    with EvaluationCount() as evals:
         for kind, with_events in (("coordinate", False), ("bootstrap", False),
                                   ("coordinate", True)):
             track_filter(kind, *streams[with_events], device, failures, smi, evals, width,
@@ -1148,9 +1203,10 @@ def evaluation_depth_args(device, dataset="synthcad", testset="val", obj_id=1, r
 
 
 def render_depth_check(device, smi, args, label="7a"):
-    """render_depth at an evaluation's shape (``evaluation_depth_args``)
-    against its plain version and against one block per pose
-    (``face_slices`` 1): both bitwise equal; then both plans timed. Returns
+    """render_depth at an evaluation's shape (``evaluation_depth_args``),
+    each compared launch written over NaN, against its plain version and
+    against one block per pose (``face_slices`` 1): both bitwise equal; then
+    both plans timed (ok needs the automatic plan's device time). Returns
     (ok, timing row of the automatic plan, the one-block plan's (ms, device
     ms), the automatic plan's face slices)."""
     import torch
@@ -1165,13 +1221,15 @@ def render_depth_check(device, smi, args, label="7a"):
     one = {"face_slices": 1}
     plan = launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width, t.shape[0],
                        depth_only=True)
-    d = render_depth(*args, backface_cull=False, device=device)
-    d1 = render_depth(*args, backface_cull=False, device=device, tuning=one)
+    d, fresh = on_nan_block(lambda: render_depth(*args, backface_cull=False, device=device))
+    d1, fresh1 = on_nan_block(
+        lambda: render_depth(*args, backface_cull=False, device=device, tuning=one))
     ref = render_depth_reference(*args, backface_cull=False)
     torch.cuda.synchronize()
     both = (d > 0) & (ref > 0)
     rel = float(((d - ref).abs() / ref.clamp(min=1e-30))[both].max())
-    bitwise, single = bool(torch.equal(d, ref)), bool(torch.equal(d, d1))
+    bitwise = fresh and bool(torch.equal(d, ref))
+    single = fresh1 and bool(torch.equal(d, d1))
     sync = torch.cuda.synchronize
     times = {}
     for name, tuning in (("auto", None), ("one", one), ("one again", one), ("auto again", None)):
@@ -1186,15 +1244,16 @@ def render_depth_check(device, smi, args, label="7a"):
           f"{cam.width}x{cam.height}, {t.shape[0]} poses, every face drawn): "
           f"{plan['face_slices']} face slices of up to {plan['face_cap']} faces "
           f"({t.shape[0] * plan['face_slices']} blocks of {plan['threads']} threads, "
-          f"{plan['smem_bytes']} B of shared memory each); bitwise equal to the plain version "
-          f"{bitwise}, to one block per pose {single} (relative depth max {rel:.2e}); "
+          f"{plan['smem_bytes']} B of shared memory each); written over NaN {fresh and fresh1}, "
+          f"bitwise equal to the plain version {bitwise}, to one block per pose {single} "
+          f"(relative depth max {rel:.2e}); "
           f"kernel {ms:.4f} ms (CUDA events over 50 calls), device {dev_ms} ms (profiler); one "
           f"block per pose {ms1:.4f} ms, device {dev_ms1} ms (in the order split, one, one, "
           f"split: {json.dumps(times)}); plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
           f"({b_by}, {ops / 1e6:.3f} M ops, {pairs} front-face triangle-pixel pairs), "
           f"{share_of_bound(b_ms, ms, dev_ms)} on {smi}")
-    return (bitwise and single), (ms, dev_ms, plain_ms, b_ms, b_by, rel), (ms1, dev_ms1), \
-        plan["face_slices"]
+    return (bitwise and single and dev_ms is not None), \
+        (ms, dev_ms, plain_ms, b_ms, b_by, rel), (ms1, dev_ms1), plan["face_slices"]
 
 
 def bop_eval_parity(device, failures, smi, split=SYNTHCAD):
@@ -1264,8 +1323,8 @@ def bop_eval_parity(device, failures, smi, split=SYNTHCAD):
                                  raw_dir)
     ok, timing, one_block, slices = render_depth_check(device, smi, args, phase)
     if not ok:
-        failures.append(f"phase {phase} render_depth vs plain and one block per pose at the "
-                        "evaluation shape")
+        failures.append(f"phase {phase} render_depth at the evaluation shape: vs plain, vs one "
+                        "block per pose, or no device time")
     return launches, timing, one_block, slices
 
 
@@ -1336,7 +1395,7 @@ def bop_inference(device, failures, smi, scene=1, split=SYNTHCAD, samplers=BOP_S
         per_step = 2 if sampler.startswith("mtm") else 1
         render_score.launches = 0
         t0 = time.perf_counter()
-        with bench().EvaluationCount() as evals, RunnerLog(evals) as log:
+        with EvaluationCount() as evals, RunnerLog(evals) as log:
             result = bopval.scene_inference(config, str(BOP_DIR), params, device)
         dt = time.perf_counter() - t0
         launches[sampler] = render_score.launches
@@ -1393,7 +1452,7 @@ def bop_inference(device, failures, smi, scene=1, split=SYNTHCAD, samplers=BOP_S
 
 
 def bop_kernel_rows(device, smi, dataset="synthcad", obj_id=1, poses=(100, 1, 10, 9),
-                    phase="7"):
+                    phase="7", testset="val"):
     """render_score[association] at the BOP sweep's shapes (the 30x30 crop of
     the first scene-1 image of ``obj_id``; synthcad object 1 decimated to
     1,800 faces) for the pose batches of its samplers: SMC-MH 100, MH 1, MTM
@@ -1403,17 +1462,13 @@ def bop_kernel_rows(device, smi, dataset="synthcad", obj_id=1, poses=(100, 1, 10
     import torch
 
     from bayesianposeestimation.jl_tpu_torch import quaternions as quat
-    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
-        render_score,
-        render_score_reference,
-    )
     from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
     from bayesianposeestimation.jl_tpu_torch.utils import bop
     from bayesianposeestimation.jl_tpu_torch.utils.experiment_io import load_img_mesh
 
     bopval = bop_val_script()
     params = Parameters(device=device, **bopval.tuned_parameters(dataset))
-    row = next(r for r in bop.bop_test_or_train(BOP_DIR, dataset, "val", 1)
+    row = next(r for r in bop.bop_test_or_train(BOP_DIR, dataset, testset, 1)
                if r["obj_id"] == obj_id)
     cam, obs, prior_o, prior_t = bopval.image_inputs(row, params, "mask", "mask", None)
     mesh = load_img_mesh(row, params)[2]
@@ -1423,25 +1478,15 @@ def bop_kernel_rows(device, smi, dataset="synthcad", obj_id=1, poses=(100, 1, 10
                         device=device).contiguous()
     prior = torch.as_tensor(prior_o, device=device).contiguous()
     gen = torch.Generator(device=device).manual_seed(5)
-    sync = torch.cuda.synchronize
     out = {}
     for n in poses:
         t = (torch.as_tensor(prior_t, device=device)
              + 0.01 * torch.randn((n, 3), generator=gen, device=device)).contiguous()
         q = quat.rand_quaternion(gen, (n,)).contiguous()
         args = (verts, faces, cam, t, q, z, prior, params)
-        res = dict(compare_kernel(args, device), faces=mesh.n_faces)
-        ms = time_ms(lambda: render_score(*args, device=device), 200, sync)
-        plain_ms = time_ms(lambda: render_score_reference(*args), 5, sync)
-        dev_ms = device_ms(lambda: render_score(*args, device=device), 50)
-        b_ms, b_by, ops, pairs = bound_ms(args, "association")
-        out[n] = (ms, dev_ms, plain_ms, b_ms, b_by, res)
-        print(f"phase {phase} render_score[association] at the {dataset} BOP shape "
-              f"({mesh.n_faces} faces, 30x30, "
-              f"{n} poses): ok {res['ok']}, max |d| {res['max_abs_err']:.5f}; kernel {ms:.4f} ms "
-              f"(CUDA events over 200 calls), device {dev_ms} ms (profiler), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, {ops / 1e6:.3f} M ops, {pairs} "
-              f"live triangle-pixel pairs), {share_of_bound(b_ms, ms, dev_ms)} on {smi}")
+        row, res = score_row(args, device, f"phase {phase} render_score[association] at the "
+                             f"{dataset} {testset} BOP shape, object {obj_id}", smi)
+        out[n] = (*row, dict(res, faces=mesh.n_faces))
     return out
 
 
@@ -1505,7 +1550,7 @@ def bop_submission(device, failures, smi):
                         **bopval.tuned_parameters("synth", "smc_mh"))
     render_score.launches = 0
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp, bench().EvaluationCount() as evals, \
+    with tempfile.TemporaryDirectory() as tmp, EvaluationCount() as evals, \
             RunnerLog(evals) as log:
         [result] = sub.scene_results([1], "synth", "val", "smc_mh", params, str(BOP_DIR),
                                      Path(tmp), device)
@@ -1562,11 +1607,18 @@ def hardvis_phase(device, failures, smi):
     gates, with recalls equal to sampler_recall.csv to every digit,
     render_depth at its evaluation shape (the 320-face icosphere) bitwise
     against its plain version and timed, then smc_mh inference on scene 1
-    at the 0.5 s budget. Returns (render_depth launches of the evaluation,
-    its timing row, render_score launches of the inference)."""
+    at the 0.5 s budget, and render_score[association] at that inference's
+    shape (the icosphere's crop in the first hardvis scene-1 image, 100
+    poses) against its plain version and timed. Returns (render_depth
+    launches of the evaluation, its timing row, render_score launches of the
+    inference, the render_score row)."""
     launches, timing, _, _ = bop_eval_parity(device, failures, smi, HARDVIS)
     phase_launches = bop_inference(device, failures, smi, 1, HARDVIS, ("smc_mh",), "10")
-    return launches, timing, phase_launches["smc_mh"]
+    row = bop_kernel_rows(device, smi, "synth", HARDVIS["obj_id"], (100,), "10", "hardvis")[100]
+    if not row[-1]["ok"] or row[1] is None:
+        failures.append("phase 10 render_score at the hardvis shape: vs plain, or no device "
+                        "time")
+    return launches, timing, phase_launches["smc_mh"], row
 
 
 def inference_time_phase(device, failures, smi, resolutions=(25, 50, 100),
@@ -1579,10 +1631,7 @@ def inference_time_phase(device, failures, smi, resolutions=(25, 50, 100),
     import torch
 
     from bayesianposeestimation.jl_tpu_torch import quaternions as quat
-    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
-        render_score,
-        render_score_reference,
-    )
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
 
     sys.path.insert(0, str(REPO / "scripts"))
     import torch_inference_time as it
@@ -1607,23 +1656,13 @@ def inference_time_phase(device, failures, smi, resolutions=(25, 50, 100),
                     torch.full_like(exp.depth_image, float("inf"))).contiguous()
     s = exp.scene
     args = (s["verts"], s["faces"], s["camera"], t, q, z, 0.7, params)
-    res_cmp = compare_kernel(args, device)
-    sync = torch.cuda.synchronize
-    ms = time_ms(lambda: render_score(*args, device=device), 50, sync)
-    plain_ms = time_ms(lambda: render_score_reference(*args), 2, sync)
-    dev_ms = device_ms(lambda: render_score(*args, device=device), 20)
-    b_ms, b_by, ops, pairs = bound_ms(args, "association")
-    print(f"phase 11 render_score[association] at {n} poses x {max(resolutions)}x"
-          f"{max(resolutions)} (1280 faces): ok {res_cmp['ok']}, max |d| "
-          f"{res_cmp['max_abs_err']:.5f}, median rel {res_cmp['median_rel']:.2e}; kernel "
-          f"{ms:.4f} ms (CUDA events over 50 calls), device {dev_ms} ms (profiler), plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, {ops / 1e6:.3f} M ops, {pairs} live "
-          f"triangle-pixel pairs), {share_of_bound(b_ms, ms, dev_ms)} on {smi}; phase "
-          f"{time.perf_counter() - t0:.1f} s")
-    if not res_cmp["ok"]:
-        failures.append("phase 11 render_score vs plain at 1000 poses x 100x100")
-    return (launches[(max(resolutions), n)], (ms, dev_ms, plain_ms, b_ms, b_by),
-            res_cmp)
+    row, res_cmp = score_row(args, device, "phase 11 render_score[association] at the grid's "
+                             "largest point", smi, calls=(50, 2, 20))
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    if not res_cmp["ok"] or row[1] is None:
+        failures.append("phase 11 render_score at 1000 poses x 100x100: vs plain, or no "
+                        "device time")
+    return launches[(max(resolutions), n)], row, res_cmp
 
 
 def stream_messages(stream, stamp0_ns=1_700_000_000 * 10**9):
@@ -1653,8 +1692,8 @@ def stream_messages(stream, stamp0_ns=1_700_000_000 * 10**9):
 def stream_phase(device, failures, smi, final_state, n_frames=TRACK_FRAMES, vga=(640, 480),
                  width=80, height=60, n_particles=None, n_check=200):
     """Phase 12: a recorded depth stream into the trackers. The tracking
-    scene's frames rendered at 640x480 by render_depth (held bitwise against
-    its plain version and timed), written as a ROS1 bag (16UC1 images,
+    scene's frames rendered at 640x480 by render_depth (written over NaN,
+    held bitwise against its plain version and timed), written as a ROS1 bag (16UC1 images,
     camera info, ground-truth poses), converted by convert_rosbag, and
     tracked through scripts/torch_ros_particle_filter.py's --stream path at
     80x60 (the stream resized, the camera rescaled, the model read from an
@@ -1662,7 +1701,9 @@ def stream_phase(device, failures, smi, final_state, n_frames=TRACK_FRAMES, vga=
     (1250) filters under the script's gates; the spec fixture bag read; and
     phase 3's final SmcState saved and restored onto the card bitwise.
     Returns (render_depth launches of the synthesis, its timing row and
-    relative error, render_score launches of the trackers)."""
+    relative error, render_score launches of the trackers, the timing row
+    and comparison of render_score on the coordinate filter's final
+    particles and last frame)."""
     import tempfile
 
     import numpy as np
@@ -1686,26 +1727,30 @@ def stream_phase(device, failures, smi, final_state, n_frames=TRACK_FRAMES, vga=
     t = torch.as_tensor(stream["gt_t"], device=device).contiguous()
     q = torch.as_tensor(stream["gt_q"], device=device).contiguous()
     args = (verts, faces, stream["camera"], t, q)
-    d, ref = render_depth(*args, device=device), render_depth_reference(*args)
+    # the stream's own frames were rendered into a block of this size just
+    # now: the compared launch writes over NaN
+    d, fresh = on_nan_block(lambda: render_depth(*args, device=device))
+    ref = render_depth_reference(*args)
     torch.cuda.synchronize()
     both = (d > 0) & (ref > 0)
     rel = float(((d - ref).abs() / ref.clamp(min=1e-30))[both].max())
-    bitwise = bool(torch.equal(d, ref))
+    bitwise = fresh and bool(torch.equal(d, ref))
     sync = torch.cuda.synchronize
     ms = time_ms(lambda: render_depth(*args, device=device), 20, sync)
     plain_ms = time_ms(lambda: render_depth_reference(*args), 1, sync)
     dev_ms = device_ms(lambda: render_depth(*args, device=device), 10)
     b_ms, b_by, ops, pairs = bound_ms(args, epilogue="depth")
     print(f"phase 12 render_depth at {vga[0]}x{vga[1]} x {n_frames} poses ({faces.shape[0]} "
-          f"faces): bitwise equal to the plain version {bitwise} (relative depth max {rel:.2e}); "
+          f"faces): written over NaN {fresh}, bitwise equal to the plain version {bitwise} "
+          f"(relative depth max {rel:.2e}); "
           f"kernel {ms:.4f} ms (CUDA events over 20 calls), device {dev_ms} ms (profiler), plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, {ops / 1e6:.3f} M ops, {pairs} live "
           f"triangle-pixel pairs), {share_of_bound(b_ms, ms, dev_ms)} on {smi}")
-    if not bitwise:
-        failures.append("phase 12 render_depth vs plain at 640x480")
+    if not bitwise or dev_ms is None:
+        failures.append("phase 12 render_depth at 640x480: vs plain, or no device time")
 
     render_score.launches = 0
-    with tempfile.TemporaryDirectory() as tmp, bench().EvaluationCount() as evals:
+    with tempfile.TemporaryDirectory() as tmp, EvaluationCount() as evals:
         tmp = Path(tmp)
         t1 = time.perf_counter()
         rosbag.write_bag(tmp / "stream.bag", stream_messages(stream))
@@ -1727,10 +1772,19 @@ def stream_phase(device, failures, smi, final_state, n_frames=TRACK_FRAMES, vga=
               f"millimetres, poses, camera and OBJ model {same}")
         if not same:
             failures.append("phase 12 bag -> stream round trip")
-        for kind in ("coordinate", "bootstrap"):
-            track_filter(kind, recorded, model, device, failures, smi, evals, width, height,
-                         n_particles, n_check, phase="12")
+        filter_args = {kind: track_filter(kind, recorded, model, device, failures, smi, evals,
+                                          width, height, n_particles, n_check, phase="12")[1]
+                       for kind in ("coordinate", "bootstrap")}
     track_launches = render_score.launches
+    # the kernel on the recorded stream's own inputs: the coordinate filter's
+    # final particles on the last bag-derived frame
+    track_row, track_cmp = score_row(
+        filter_args["coordinate"], device, "phase 12 render_score[fixed_o] on the recorded "
+        "stream, the coordinate filter's final particles", smi, "simple", "fixed_o",
+        (100, 3, 30))
+    if not track_cmp["ok"] or track_row[1] is None:
+        failures.append("phase 12 render_score[fixed_o] on the recorded stream: vs plain, or "
+                        "no device time")
 
     fixture = [m[1] for m in rosbag.read_bag(REPO / "tests/fixtures/rosbag/tracker.bag")]
     if fixture != ["sensor_msgs/Image", "sensor_msgs/CameraInfo", "geometry_msgs/PoseStamped"]:
@@ -1751,7 +1805,8 @@ def stream_phase(device, failures, smi, final_state, n_frames=TRACK_FRAMES, vga=
           f"{equal}; phase {time.perf_counter() - t0:.1f} s")
     if not equal:
         failures.append("phase 12 checkpoint round trip")
-    return depth_launches, (ms, dev_ms, plain_ms, b_ms, b_by), rel, track_launches
+    return (depth_launches, (ms, dev_ms, plain_ms, b_ms, b_by), rel, track_launches,
+            track_row, track_cmp)
 
 
 def main() -> int:
@@ -1966,7 +2021,7 @@ def main() -> int:
 
     # -- phase 3: the benchmark chain ---------------------------------------
     n_steps, n_particles = 500, 100
-    outs, final, post, secs, evals, chain_launches, gt = bench().run_chain(
+    outs, final, post, secs, evals, chain_launches, gt = run_chain(
         dev, n_steps, n_particles, trials=3)
     res = check_chain(outs, final, post, gt, n_steps, n_particles)
     launches = chain_launches[-1]
@@ -2012,7 +2067,8 @@ def main() -> int:
     phase_done(9)
 
     # -- phase 10: the hardvis split ----------------------------------------------
-    hardvis_eval_launches, hardvis_timing, hardvis_launches = hardvis_phase(dev, failures, smi)
+    hardvis_eval_launches, hardvis_timing, hardvis_launches, hardvis_row = hardvis_phase(
+        dev, failures, smi)
     phase_done(10)
 
     # -- phase 11: the inference-time grid -----------------------------------------
@@ -2020,7 +2076,8 @@ def main() -> int:
     phase_done(11)
 
     # -- phase 12: a recorded stream into the trackers, checkpoints ----------------
-    vga_launches, vga_timing, vga_rel, stream_launches = stream_phase(dev, failures, smi, final)
+    vga_launches, vga_timing, vga_rel, stream_launches, stream_row, stream_cmp = stream_phase(
+        dev, failures, smi, final)
     phase_done(12)
 
     if failures:
@@ -2097,9 +2154,9 @@ def main() -> int:
             f"render_score[association] synth BOP {res['faces']} faces 30x30 100 poses", 937,
             synth_launches.get(res["faces"], 0),
             f"phase 9 BOP submission, synth val scene 1, object {obj}", res["max_abs_err"], row))
-    *row, res = synth_rows[3]
-    entries.append(entry("render_score[association] hardvis 320 faces 30x30 100 poses", 937,
-                         hardvis_launches, "phase 10 smc_mh on hardvis scene 1",
+    *row, res = hardvis_row
+    entries.append(entry(f"render_score[association] hardvis {res['faces']} faces 30x30 100 poses",
+                         937, hardvis_launches, "phase 10 smc_mh on hardvis scene 1",
                          res["max_abs_err"], row))
     entries.append(entry("render_depth 320 faces 100x100 (hardvis evaluation)", 930,
                          hardvis_eval_launches, "phase 10 evaluation of the JAX estimates",
@@ -2110,8 +2167,8 @@ def main() -> int:
     entries.append(entry("render_depth 1280 faces 640x480 120 poses", 930, vga_launches,
                          "phase 12 synthesis of the recorded stream", vga_rel, vga_timing))
     entries.append(entry("render_score[fixed_o] 80x60 recorded stream", 937, stream_launches,
-                         "phase 12 trackers on the bag-derived stream", worst["fixed_o"],
-                         track_timing["render_score[fixed_o]"]))
+                         "phase 12 trackers on the bag-derived stream",
+                         stream_cmp["max_abs_err"], stream_row))
     for e in entries:
         if e["launches"] <= 0:
             print(f"chip_smoke FAILED: {e['name']} was not launched on its path",

@@ -48,8 +48,6 @@ def test_bench_torch_refuses_the_cpu_without_the_flag(monkeypatch):
     monkeypatch.delenv("BENCH_ALLOW_CPU", raising=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_torch.main(["--n-steps", "3", "--n-particles", "8"])
-    with pytest.raises(SystemExit):
-        bench_torch.main(["--allow-cpu", "--trials", "2"])
 
 
 def test_bench_torch_takes_bench_allow_cpu(monkeypatch, capsys):
