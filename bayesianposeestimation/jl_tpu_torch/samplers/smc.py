@@ -14,6 +14,17 @@ device with no host synchronisation:
 The functions that consume random numbers take them as arguments (``u``,
 ``normals``) so tests can inject the JAX package's draws; the kernels draw
 them from the chain's device generator.
+
+A ``SequentialMonteCarlo`` with a ``ParticleShard`` runs one slice of the
+particle axis in each process of a ``torch.distributed`` group (see
+``parallel/sharded.py``). The reductions over particles become collectives:
+the log-sum-exps of the weights (evidence, normalization, ESS) an all-reduce
+of the maximum and then of the sum, the adaptive kernel's weighted moments
+an all-reduce of the sums, and resampling an all-gather of the weights and
+particles, from which every process takes the same indices and keeps its
+own slice. Every per-particle draw is made at the full N on every process
+and sliced, so with the same seed the sharded chain makes the unsharded
+chain's draws. Without a shard (the default) nothing of this runs.
 """
 
 from __future__ import annotations
@@ -23,14 +34,17 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
+from ..graph import sample_graph
 from ..posterior import retemper
-from ..proposals import propose, transition_probability
+from ..proposals import Proposal, apply_draws, propose, transition_probability
 from ..samples import Sample, sample_plus
 from .mh import mh_kernel
 
 __all__ = [
     "SmcState",
+    "ParticleShard",
     "SequentialMonteCarlo",
     "MhKernel",
     "BootstrapKernel",
@@ -55,24 +69,83 @@ class SmcState:
     log_relative_ess: Any  # scalar, log(ESS / N)
 
 
+@dataclass(frozen=True)
+class ParticleShard:
+    """The slice [start, start + size) of an ``n_particles`` population that
+    process ``rank`` of a ``torch.distributed`` group of ``world`` processes
+    holds (``world`` divides ``n_particles``), and the collectives over the
+    group that the SMC step needs."""
+
+    group: Any
+    rank: int
+    world: int
+    n_particles: int
+
+    def __post_init__(self):
+        if self.n_particles % self.world:
+            raise ValueError(f"{self.n_particles} particles do not split evenly over "
+                             f"{self.world} processes")
+
+    @property
+    def size(self) -> int:
+        return self.n_particles // self.world
+
+    @property
+    def start(self) -> int:
+        return self.rank * self.size
+
+    def rows(self, x, axis=0):
+        """This process's particles of ``x``, a tensor over all of them."""
+        return x.narrow(axis, self.start, self.size)
+
+    def all_sum(self, x):
+        x = x.clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
+    def logsumexp(self, x):
+        """logsumexp over the last axis of ``x`` across all processes: an
+        all-reduce of the maximum, then of the sum of exp(x - max)."""
+        m = x.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        total = self.all_sum(torch.exp(x - m.unsqueeze(-1)).sum(-1))
+        return m + torch.log(total)
+
+    def gather(self, x, axis=0):
+        """``x`` of every process, concatenated along ``axis`` in rank order."""
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=axis)
+
+
+def _logsumexp(x, shard):
+    return torch.logsumexp(x, dim=-1) if shard is None else shard.logsumexp(x)
+
+
 def logevidence(state: SmcState):
     return state.log_evidence
 
 
-def normalize_log_weights(log_weights):
+def normalize_log_weights(log_weights, shard=None):
     """Log-domain normalization; an all--inf vector is left as it is."""
-    denom = torch.logsumexp(log_weights, dim=-1)
+    denom = _logsumexp(log_weights, shard)
     return torch.where(torch.isfinite(denom), log_weights - denom, log_weights)
 
 
-def log_relative_ess(log_weights):
+def log_relative_ess(log_weights, shard=None):
     """log(ESS/N) = -logsumexp(2w) - log N for normalized weights."""
-    return -torch.logsumexp(2.0 * log_weights, dim=-1) - math.log(log_weights.shape[-1])
+    n = log_weights.shape[-1] if shard is None else shard.n_particles
+    return -_logsumexp(2.0 * log_weights, shard) - math.log(n)
 
 
-def systematic_resampling_indices(log_weights, u):
+def systematic_resampling_indices(log_weights, u, shard=None):
     """Indices [N] (int64) for positions (u + i)/N against the normalized
-    weight CDF; all-zero weights resample uniformly. ``u``: a uniform scalar."""
+    weight CDF; all-zero weights resample uniformly. ``u``: a uniform scalar.
+    With a ``shard``: this process's slice of the indices into the gathered
+    population, which every process computes alike."""
+    if shard is not None:
+        return shard.rows(systematic_resampling_indices(shard.gather(log_weights, -1), u), -1)
     n = log_weights.shape[-1]
     w = torch.exp(normalize_log_weights(log_weights))
     w = torch.where((w == 0).all(), torch.full_like(w, 1.0 / n), w)
@@ -88,19 +161,37 @@ def _gather_sample(sample: Sample, idx) -> Sample:
                   sample.log_prob[idx], sample.log_like[idx])
 
 
-def resample_systematic(u, state: SmcState) -> SmcState:
-    """Resample the particles with uniform ``u``; weights reset to uniform."""
-    idx = systematic_resampling_indices(state.log_weights, u)
-    n = state.log_weights.shape[-1]
-    return SmcState(_gather_sample(state.sample, idx),
+def _gathered_sample(sample: Sample, shard: ParticleShard) -> Sample:
+    """The whole population of a sharded sample on every process: its
+    per-particle tensors packed into one [n, d] tensor, gathered once."""
+    fields = [*sample.variables.values(), sample.log_prob, sample.log_like]
+    dtype = sample.log_like.dtype
+    packed = torch.cat([f.reshape(f.shape[0], -1).to(dtype) for f in fields], dim=1)
+    full = shard.gather(packed)
+    out, col = [], 0
+    for f in fields:
+        width = f[0].numel()
+        out.append(full[:, col:col + width].reshape(-1, *f.shape[1:]).to(f.dtype))
+        col += width
+    return Sample(dict(zip(sample.variables, out[:-2])), out[-2], out[-1])
+
+
+def resample_systematic(u, state: SmcState, shard=None) -> SmcState:
+    """Resample the particles with uniform ``u``; weights reset to uniform.
+    With a ``shard`` each process draws its particles from the gathered
+    population."""
+    idx = systematic_resampling_indices(state.log_weights, u, shard)
+    n = state.log_weights.shape[-1] if shard is None else shard.n_particles
+    source = state.sample if shard is None else _gathered_sample(state.sample, shard)
+    return SmcState(_gather_sample(source, idx),
                     torch.full_like(state.log_weights, -math.log(n)),
                     state.log_evidence, state.temperature, state.log_relative_ess)
 
 
-def maybe_resample(u, state: SmcState, log_relative_ess_threshold) -> SmcState:
+def maybe_resample(u, state: SmcState, log_relative_ess_threshold, shard=None) -> SmcState:
     """Resample where log ESS/N is below the threshold: both paths are
     computed and selected per field, so no value leaves the device."""
-    res = resample_systematic(u, state)
+    res = resample_systematic(u, state, shard)
     do = state.log_relative_ess < log_relative_ess_threshold
 
     def sel(a, b):
@@ -113,18 +204,38 @@ def maybe_resample(u, state: SmcState, log_relative_ess_threshold) -> SmcState:
                     state.temperature, state.log_relative_ess)
 
 
+def _propose(generator, proposal, sample: Sample, shard):
+    """``propose``; with a ``shard``, the draws of the whole population made
+    and this process's rows of them applied."""
+    if shard is None:
+        return propose(generator, proposal, sample)
+    if not isinstance(proposal, Proposal):
+        raise TypeError(f"a sharded chain draws through Proposal graphs, not {proposal!r}")
+    draws = sample_graph(proposal.model, generator, (shard.n_particles,))
+    return apply_draws(proposal, sample, {k: shard.rows(v) for k, v in draws.items()})
+
+
+def _draw(fn, shape, generator, dtype, shard):
+    """``fn(shape)`` from ``generator`` with a particle axis first; with a
+    ``shard``, drawn for the whole population and this process's rows kept."""
+    if shard is not None:
+        shape = (shard.n_particles, *shape[1:])
+    x = fn(shape, generator=generator, dtype=dtype, device=generator.device)
+    return x if shard is None else shard.rows(x)
+
+
 class MhKernel:
     """MCMC forward kernel with the tempered-target increment (ϕ₂-ϕ₁)·ℓ_like(old)."""
 
     def __init__(self, proposal):
         self.proposal = proposal
 
-    def propose(self, generator, state: SmcState):
-        return propose(generator, self.proposal, state.sample)
+    def propose(self, generator, state: SmcState, shard=None):
+        return _propose(generator, self.proposal, state.sample, shard)
 
-    def forward(self, generator, new_sample, old_sample):
-        u = torch.rand(new_sample.log_prob.shape, generator=generator,
-                       dtype=new_sample.log_prob.dtype, device=generator.device)
+    def forward(self, generator, new_sample, old_sample, shard=None):
+        u = _draw(torch.rand, new_sample.log_prob.shape, generator, new_sample.log_prob.dtype,
+                  shard)
         return mh_kernel(u, self.proposal, new_sample, old_sample)
 
     def incremental_weights(self, new_sample, new_temp, old_state: SmcState):
@@ -138,10 +249,10 @@ class BootstrapKernel:
     def __init__(self, proposal):
         self.proposal = proposal
 
-    def propose(self, generator, state: SmcState):
-        return propose(generator, self.proposal, state.sample)
+    def propose(self, generator, state: SmcState, shard=None):
+        return _propose(generator, self.proposal, state.sample, shard)
 
-    def forward(self, generator, new_sample, old_sample):
+    def forward(self, generator, new_sample, old_sample, shard=None):
         return new_sample
 
     def incremental_weights(self, new_sample, new_temp, old_state: SmcState):
@@ -155,10 +266,10 @@ class ForwardProposalKernel:
     def __init__(self, proposal):
         self.proposal = proposal
 
-    def propose(self, generator, state: SmcState):
-        return propose(generator, self.proposal, state.sample)
+    def propose(self, generator, state: SmcState, shard=None):
+        return _propose(generator, self.proposal, state.sample, shard)
 
-    def forward(self, generator, new_sample, old_sample):
+    def forward(self, generator, new_sample, old_sample, shard=None):
         return new_sample
 
     def incremental_weights(self, new_sample, new_temp, old_state: SmcState):
@@ -167,13 +278,14 @@ class ForwardProposalKernel:
         return new_sample.log_prob + bwd - old_state.sample.log_prob - fwd
 
 
-def adaptive_deltas(state: SmcState, names, sigmas, quaternion_names, normals: dict):
+def adaptive_deltas(state: SmcState, names, sigmas, quaternion_names, normals: dict,
+                    shard=None):
     """Zero-centred perturbations whose covariance is the weighted particle
     covariance (AnalyticWeights correction 1/(1-Σw²), floor 1e-6), from
     standard normals ``normals[name]`` [N, d]. Quaternion variables keep the
     isotropic σ; a covariance whose Cholesky factorization fails falls back
-    to diag(σ)."""
-    w = torch.exp(normalize_log_weights(state.log_weights))
+    to diag(σ). With a ``shard`` the weighted sums run over every process."""
+    w = torch.exp(normalize_log_weights(state.log_weights, shard))
     out = {}
     for name in names:
         x = state.sample.variables[name]
@@ -183,10 +295,15 @@ def adaptive_deltas(state: SmcState, names, sigmas, quaternion_names, normals: d
             out[name] = sigma * eps
             continue
         d = x.shape[-1]
-        mean = (w[:, None] * x).sum(0)
+        mean, sum_w2 = (w[:, None] * x).sum(0), (w * w).sum()
+        if shard is not None:  # the weighted mean and Σw² in one all-reduce
+            sums = shard.all_sum(torch.cat([mean, sum_w2[None]]))
+            mean, sum_w2 = sums[:d], sums[d]
         xc = x - mean
         cov = (w[:, None, None] * xc[:, :, None] * xc[:, None, :]).sum(0)
-        cov = cov / torch.clamp(1.0 - (w * w).sum(), min=1e-6)
+        if shard is not None:
+            cov = shard.all_sum(cov)
+        cov = cov / torch.clamp(1.0 - sum_w2, min=1e-6)
         chol, info = torch.linalg.cholesky_ex(cov)
         ok = (info == 0) & torch.isfinite(chol).all()
         fallback = torch.eye(d, dtype=x.dtype, device=x.device) * sigma
@@ -204,20 +321,20 @@ class AdaptiveKernel:
         self.kernel = kernel
         self.sigmas = sigmas
 
-    def propose(self, generator, state: SmcState):
+    def propose(self, generator, state: SmcState, shard=None):
         proposal = self.kernel.proposal
         normals = {}
         for name in proposal.names:
             x = state.sample.variables[name]
             d = 3 if name in proposal.quaternion_names else x.shape[-1]
-            normals[name] = torch.randn((x.shape[0], d), generator=generator,
-                                        dtype=x.dtype, device=generator.device)
+            normals[name] = _draw(torch.randn, (x.shape[0], d), generator, x.dtype, shard)
+        extra = {} if shard is None else {"shard": shard}
         deltas = adaptive_deltas(state, proposal.names, self.sigmas,
-                                 proposal.quaternion_names, normals)
+                                 proposal.quaternion_names, normals, **extra)
         return sample_plus(state.sample, deltas, proposal.quaternion_names)
 
-    def forward(self, generator, new_sample, old_sample):
-        return self.kernel.forward(generator, new_sample, old_sample)
+    def forward(self, generator, new_sample, old_sample, shard=None):
+        return self.kernel.forward(generator, new_sample, old_sample, shard)
 
     def incremental_weights(self, new_sample, new_temp, old_state):
         return self.kernel.incremental_weights(new_sample, new_temp, old_state)
@@ -229,33 +346,43 @@ class SequentialMonteCarlo:
     temp_schedule: Any
     n_particles: int
     log_relative_ess_threshold: float
+    shard: Any = None  # a ParticleShard: this process's slice of the particles
 
     def init(self, rngs, model, n_particles=None):
         """Importance-sampling init at ϕ₀ = 0: uniform weights, evidence 0."""
         n = self.n_particles if n_particles is None else n_particles
+        shard = self.shard
         zero = torch.zeros((), dtype=torch.float32, device=rngs.device.device)
-        sample = model.tempered_logdensity_sample(model.sample_prior(rngs.device, n), zero)
-        log_weights = torch.full((n,), -math.log(n), dtype=torch.float32,
-                                 device=rngs.device.device)
-        state = SmcState(sample, log_weights, zero, zero, log_relative_ess(log_weights))
+        prior = model.sample_prior(rngs.device, n)
+        if shard is not None:
+            if n != shard.n_particles:
+                raise ValueError(f"the shard splits {shard.n_particles} particles, not {n}")
+            prior = Sample({k: shard.rows(v) for k, v in prior.variables.items()})
+        sample = model.tempered_logdensity_sample(prior, zero)
+        log_weights = torch.full((sample.log_like.shape[0],), -math.log(n),
+                                 dtype=torch.float32, device=rngs.device.device)
+        state = SmcState(sample, log_weights, zero, zero, log_relative_ess(log_weights, shard))
         return state.sample, state
 
     def step(self, rngs, model, old_state: SmcState):
         gen = rngs.device
+        shard = self.shard
+        # the unsharded step calls each kernel and helper as it always did
+        extra = {} if shard is None else {"shard": shard}
         new_temp = self.temp_schedule.increment(old_state.temperature)
-        proposed = self.kernel.propose(gen, old_state)
+        proposed = self.kernel.propose(gen, old_state, **extra)
         proposed = model.tempered_logdensity_sample(proposed, new_temp)
         # the forward kernel targets π_ϕnew: re-temper the old sample's
         # carried density (no re-render)
         old_retempered = retemper(old_state.sample, old_state.temperature, new_temp)
-        new_sample = self.kernel.forward(gen, proposed, old_retempered)
+        new_sample = self.kernel.forward(gen, proposed, old_retempered, **extra)
 
         incr = self.kernel.incremental_weights(new_sample, new_temp, old_state)
         new_weights = old_state.log_weights + incr
-        new_evidence = old_state.log_evidence + torch.logsumexp(new_weights, dim=-1)
-        normalized = normalize_log_weights(new_weights)
+        new_evidence = old_state.log_evidence + _logsumexp(new_weights, shard)
+        normalized = normalize_log_weights(new_weights, shard)
         new_state = SmcState(new_sample, normalized, new_evidence, new_temp,
-                             log_relative_ess(normalized))
+                             log_relative_ess(normalized, shard))
         u = torch.rand((), generator=gen, dtype=normalized.dtype, device=gen.device)
-        resampled = maybe_resample(u, new_state, self.log_relative_ess_threshold)
+        resampled = maybe_resample(u, new_state, self.log_relative_ess_threshold, **extra)
         return resampled.sample, resampled

@@ -26,6 +26,8 @@ matplotlib); the CSVs hold the numbers. Runs on the CUDA device unless
 
 import argparse
 import csv
+import math
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -57,6 +59,11 @@ DATASET_TUNED = {
     ("synthcad", "mtm_sampler"): CAD_TUNED,
     ("synthcad", None): CAD_TUNED,
 }
+# the likelihood and proposal settings of the dissertation's ablation and
+# MCMC sweeps (scripts/smc_mh_baseline.py, smc_observation.py, smc_priors.py,
+# smc_mh_resolution.py, mcmc_benchmark.py)
+SWEEP_TUNED = dict(pixel_sigma=0.005, association_sigma=0.005, o_mask_is=0.9,
+                   proposal_sigma_r=(math.pi,) * 3)
 SAMPLERS = ("smc_mh", "smc_forward", "smc_bootstrap", "mh_sampler", "mtm_sampler")
 MCMC_TRIES = 10  # the try count the MCMC baselines were tuned at
 EVAL_CROP = 100  # evaluation crops around each ground truth, in pixels
@@ -353,13 +360,97 @@ def write_csv(path, rows):
         writer.writerows(rows)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__,
+def card_line(device):
+    """The card's name and power limit as nvidia-smi gives them, printed
+    (None on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=False, timeout=60).stdout.strip()
+    print(f"card: {smi}")
+    return smi
+
+
+def common_args(description, dataset="synth"):
+    """The arguments every BOP sweep script takes."""
+    ap = argparse.ArgumentParser(description=description,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--bop-dir", default="data/bop")
-    ap.add_argument("--dataset", default="synth")
+    ap.add_argument("--dataset", default=dataset)
     ap.add_argument("--testset", default="val")
     ap.add_argument("--scenes", type=int, nargs="+", default=[1])
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def scene_recalls(errors):
+    """ADD-S, VSD and VSDBOP recall of one config's errors."""
+    from bayesianposeestimation.jl_tpu_torch.utils import evaluation as ev
+
+    return dict(
+        adds_recall=ev.recall(*ev.threshold_errors(errors["adds"], ev.ADDS_THETA)),
+        vsd_recall=ev.recall(*ev.threshold_errors(errors["vsd"], ev.BOP18_THETA)),
+        vsdbop_recall=ev.recall(*ev.threshold_errors(errors["vsdbop"],
+                                                     np.asarray(ev.BOP19_THRESHOLDS))))
+
+
+def run_config(name, config, parameters, bop_dir, device, signature=None, cache=None,
+               data_root="data"):
+    """``scene_inference`` and ``evaluate_scene`` of one config, each through
+    ``produce_or_load``: the estimates under <data_root>/exp_raw/<name>_cuda,
+    the errors under <data_root>/exp_pro/<name>_cuda/errors. Returns
+    (result, errors)."""
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import produce_or_load, savename
+
+    root = Path(data_root)
+    print(f"config: {config}")
+    result, _ = produce_or_load(
+        lambda c: scene_inference(c, bop_dir, parameters, device),
+        config, root / "exp_raw" / f"{name}_cuda", filename=savename(config),
+        signature=signature)
+    t0 = time.perf_counter()
+    errors, _ = produce_or_load(
+        lambda c: evaluate_scene(c, bop_dir, parameters, result["result_rows"], device, cache),
+        config, root / "exp_pro" / f"{name}_cuda" / "errors", filename=savename(config),
+        signature=signature)
+    walls = [float(r["time"]) for r in result["result_rows"]]
+    print(f"  evaluation {time.perf_counter() - t0:.2f} s; {int(result['n_steps'])} steps "
+          f"per run of the first object ({float(result['step_time']) * 1e3:.4f} ms per step); "
+          f"wall per pose mean {np.mean(walls):.4f} s, max {np.max(walls):.4f} s (budget "
+          f"{parameters.time_budget} s)")
+    return result, errors
+
+
+def write_table(name, filename, rows, data_root="data"):
+    """``rows`` as <data_root>/exp_pro/<name>_cuda/<filename>, printed."""
+    out_dir = Path(data_root) / "exp_pro" / f"{name}_cuda"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    write_csv(out_dir / filename, rows)
+    for r in rows:
+        print(", ".join(f"{k}={v}" for k, v in r.items()))
+    print(f"wrote {out_dir / filename}")
+    return out_dir / filename
+
+
+def sweep_main(script, args, name):
+    """An experiment script's sweep: each of ``script.configs(args)`` through
+    ``script.run``, then ``script.table`` of the results written as
+    <name>_cuda/<script.TABLE>; rows over their budget are flagged."""
+    from bayesianposeestimation.jl_tpu_torch.devices import resolve_device
+
+    card_line(resolve_device(args.device))
+    cache = {}
+    results = [(c, *script.run(c, args, cache)) for c in script.configs(args)]
+    rows = script.table(results, args)
+    for r in rows:
+        if not r.get("budget_ok", True):
+            print(f"  WARN over budget: {r}")
+    return write_table(name, script.TABLE, rows)
+
+
+def parse_args(argv=None):
+    ap = common_args(__doc__)
     ap.add_argument("--samplers", nargs="+", default=["smc_mh"], choices=SAMPLERS)
     ap.add_argument("--time-budget", type=float, default=0.5)
     ap.add_argument("--n-particles", type=int, default=100)
@@ -367,37 +458,35 @@ def main():
     ap.add_argument("--n-steps", type=int, default=None,
                     help="steps per chain with --mode steps")
     ap.add_argument("--experiment-name", default="smc_bop_val")
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.mode == "steps" and args.n_steps is None:
         ap.error("--mode steps needs --n-steps")
+    return args
 
-    from bayesianposeestimation.jl_tpu_torch.devices import resolve_device
-    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
-    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import (
-        datadir,
-        dict_list,
-        produce_or_load,
-        savename,
-    )
 
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        import subprocess
+def sweep_configs(args):
+    """The configs of the sweep, in the order the sweep runs them."""
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import dict_list
 
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             check=False, timeout=60).stdout.strip()
-        print(f"card: {smi}")
     sweep = {"sampler": list(args.samplers), "dataset": args.dataset,
              "testset": args.testset, "scene_id": list(args.scenes)}
     if args.mode == "steps":
         sweep["mode"] = "steps"
+    return dict_list(sweep)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from bayesianposeestimation.jl_tpu_torch.devices import resolve_device
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import datadir
+
+    device = resolve_device(args.device)
+    card_line(device)
     name = f"{args.experiment_name}_cuda"
-    raw_dir = datadir("exp_raw", name)
     all_errors, steps, cache = {}, {}, {}
-    for config in dict_list(sweep):
-        print(f"config: {config}")
+    for config in sweep_configs(args):
         eff_particles = MCMC_TRIES if is_mcmc(config["sampler"]) else args.n_particles
         tuned = tuned_parameters(args.dataset, config["sampler"])
         parameters = Parameters(n_particles=eff_particles, time_budget=args.time_budget,
@@ -406,23 +495,11 @@ def main():
         signature = dict(n_particles=eff_particles, time_budget=args.time_budget, **tuned)
         if args.mode == "steps":
             signature["n_steps"] = args.n_steps
-        result, _ = produce_or_load(
-            lambda c: scene_inference(c, args.bop_dir, parameters, device),
-            config, raw_dir, filename=savename(config), signature=signature)
-        t0 = time.perf_counter()
-        errors, _ = produce_or_load(
-            lambda c: evaluate_scene(c, args.bop_dir, parameters, result["result_rows"],
-                                     device, cache),
-            config, datadir("exp_pro", name, "errors"), filename=savename(config),
-            signature=signature)
-        print(f"  evaluation {time.perf_counter() - t0:.2f} s")
+        result, errors = run_config(args.experiment_name, config, parameters, args.bop_dir,
+                                    device, signature, cache)
         all_errors.setdefault(config["sampler"], []).append(errors)
-        calib = result["calibration"]
         steps.setdefault(config["sampler"], []).extend(
-            int(c["n_steps"]) for c in dict(calib).values())
-        walls = [float(r["time"]) for r in result["result_rows"]]
-        print(f"  wall per pose: mean {np.mean(walls):.4f} s, max {np.max(walls):.4f} s "
-              f"(budget {args.time_budget} s)")
+            int(c["n_steps"]) for c in dict(result["calibration"]).values())
 
     rows, visib_rows = recall_rows(all_errors)
     for r in rows:

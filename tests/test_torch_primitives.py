@@ -205,10 +205,23 @@ def _imports(path):
             yield ("." * node.level) + (node.module or "")
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
     PORT.parents[1] / "chip_smoke.py", PORT.parents[1] / "chip_profile.py",
-    PORT.parents[1] / "bench_torch.py"] + sorted((PORT.parents[1] / "scripts").glob("torch_*.py")),
-                         ids=lambda p: str(p.relative_to(PORT.parents[1])))
+    PORT.parents[1] / "bench_torch.py"] + sorted((PORT.parents[1] / "scripts").glob("torch_*.py"))
+
+
+def test_import_check_covers_the_sweeps_and_sharding():
+    names = {str(p.relative_to(PORT.parents[1])) for p in PORT_FILES}
+    wanted = {f"bayesianposeestimation/jl_tpu_torch/parallel/{m}.py"
+              for m in ("__init__", "sharded", "sweep")}
+    wanted |= {f"scripts/torch_{m}.py" for m in (
+        "smc_benchmark", "smc_benchmark_steri", "mcmc_benchmark", "mcmc_baseline",
+        "smc_mh_baseline", "smc_mh_resolution", "smc_observation", "smc_priors",
+        "trajectory_error")}
+    assert wanted <= names, wanted - names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(PORT.parents[1])))
 def test_port_imports_no_jax(path):
     """Checked on the source text, so it does not depend on what some other
     test happened to import already."""
