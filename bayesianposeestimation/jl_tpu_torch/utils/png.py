@@ -1,4 +1,4 @@
-"""A PNG decoder for the BOP images, on ``zlib`` and NumPy alone.
+"""A PNG decoder and encoder for the BOP images, on ``zlib`` and NumPy alone.
 
 The BOP datasets store depth as 16-bit and masks as 8-bit grayscale PNGs.
 This reads exactly those: colour type 0 (grayscale) at bit depth 8 or 16,
@@ -7,7 +7,9 @@ Paeth). Anything else raises ``ValueError`` rather than being misread.
 16-bit samples are big-endian in the file and come back as ``uint16``.
 
 ``png_size`` reads the width and height from the header without
-decompressing the image.
+decompressing the image. ``write_png`` writes a [H, W] ``uint8`` or
+``uint16`` array as a grayscale PNG of that bit depth (filter None on every
+row), the format the synthetic BOP generator stores depth and masks in.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png", "png_size"]
+__all__ = ["read_png", "png_size", "write_png"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -114,3 +116,26 @@ def read_png(path) -> np.ndarray:
     if depth == 16:
         return img.view(">u2").astype(np.uint16).reshape(height, width)
     return img.reshape(height, width)
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+
+def write_png(path, img) -> None:
+    """Write a [H, W] ``uint8`` or ``uint16`` array as an 8- or 16-bit
+    grayscale PNG (16-bit samples big-endian, as the format stores them)."""
+    img = np.asarray(img)
+    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"write_png takes a [H, W] uint8 or uint16 array, not "
+                         f"{img.dtype} {img.shape}")
+    height, width = img.shape
+    depth = 8 * img.dtype.itemsize
+    rows = np.ascontiguousarray(img, ">u2" if depth == 16 else np.uint8).view(np.uint8)
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows.reshape(height, -1)], axis=1)
+    with open(path, "wb") as fh:
+        fh.write(_SIGNATURE)
+        fh.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, 0, 0, 0, 0)))
+        fh.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        fh.write(_chunk(b"IEND", b""))

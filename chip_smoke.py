@@ -127,7 +127,30 @@ Phases (each prints its results; any failure exits non-zero):
      ``sample_chain`` with the same seed, launches = evaluations, no host
      synchronisation; (e) the tracking script's coordinate filter exported
      with --export-tum through scripts/torch_trajectory_error.py, ATE and
-     median errors inside the tracking gates.
+     median errors inside the tracking gates;
+  15. the hyperparameter searches and the synthetic BOP generator: (a) the
+     port's evaluate_scene on all 108 estimate artifacts of the six JAX
+     searches (HYPEROPT_EXPERIMENTS) under phase 14a's gates, against the
+     JAX package's re-evaluation in
+     tests/fixtures/reevaluated_errors_hyperopt.npz where the checked-in
+     errors are stale, each trials.csv cost recomputed from those errors and
+     from the port's beside the checked-in one; (b) each search script at
+     its real settings with 2 trials on scene 1 of its split at --seed 0
+     (HYPEROPT_RUNS) into a temporary directory: one calibration per object,
+     one step count per object for both trials, finite estimates, launches =
+     likelihood evaluations = 1 + k (steps - 1) per chain run, trials.csv
+     well formed with the JAX search's first two candidates; (c)
+     render_score[association] with the trial's hyper row on each search's
+     final particles (MTM: 10 tries) against its plain version, timed; (d)
+     scripts/torch_make_synthetic_bop.py: the easy profile (synth val scene
+     1 at --seed 0, the checked-in rotations injected) and the cad profile
+     (synthcad train scene 1, images 0-1, at --seed 77, the JAX script's
+     rotation draws from tests/fixtures/jax_generator_quaternions.json
+     injected) against the checked-in scenes (poses, cameras, masks,
+     visibilities, depth), one render_depth launch per solo render, and
+     render_depth at the generator's 160x160 window on the 128,000-face
+     model (bitwise against its plain version, timed, its device time
+     required).
 Every phase prints the seconds since the start when it ends.
 Phase 2 also holds ``render_depth`` and ``render_score(return_mu=True)``
 against their plain versions and each other, and times them at the tracking
@@ -366,11 +389,12 @@ def share_of_bound(b_ms, ms, dev_ms):
 
 
 def score_row(args, device, label, smi, variant="association", epilogue="association",
-              calls=(200, 5, 50)):
-    """render_score on ``args`` against its plain version (``compare_kernel``),
-    then timed: CUDA events over ``calls[0]`` launches, the plain version over
-    ``calls[1]`` calls, profiler device time over ``calls[2]``; the bound.
-    Prints one line under ``label``; returns (timing row, comparison)."""
+              calls=(200, 5, 50), hyper=None):
+    """render_score on ``args`` (with the device ``hyper`` row if given)
+    against its plain version (``compare_kernel``), then timed: CUDA events
+    over ``calls[0]`` launches, the plain version over ``calls[1]`` calls,
+    profiler device time over ``calls[2]``; the bound. Prints one line under
+    ``label``; returns (timing row, comparison)."""
     import torch
 
     from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
@@ -378,12 +402,15 @@ def score_row(args, device, label, smi, variant="association", epilogue="associa
         render_score_reference,
     )
 
-    res = compare_kernel(args, device, variant)
+    res = compare_kernel(args, device, variant, hyper)
     sync = torch.cuda.synchronize
-    ms = time_ms(lambda: render_score(*args, variant=variant, device=device), calls[0], sync)
-    plain_ms = time_ms(lambda: render_score_reference(*args, variant=variant), calls[1], sync)
-    dev_ms = device_ms(lambda: render_score(*args, variant=variant, device=device), calls[2])
-    b_ms, b_by, ops, pairs = bound_ms(args, epilogue)
+    ms = time_ms(lambda: render_score(*args, variant=variant, hyper=hyper, device=device),
+                 calls[0], sync)
+    plain_ms = time_ms(lambda: render_score_reference(*args, variant=variant, hyper=hyper),
+                       calls[1], sync)
+    dev_ms = device_ms(lambda: render_score(*args, variant=variant, hyper=hyper,
+                                            device=device), calls[2])
+    b_ms, b_by, ops, pairs = bound_ms(args, epilogue, hyper is not None)
     print(f"{label} ({args[1].shape[0]} faces, {args[2].width}x{args[2].height}, "
           f"{args[3].shape[0]} poses): ok {res['ok']}, max |d| {res['max_abs_err']:.5f}, median "
           f"rel {res['median_rel']:.2e}; kernel {ms:.4f} ms (CUDA events over {calls[0]} "
@@ -1248,13 +1275,15 @@ def evaluation_depth_args(device, dataset="synthcad", testset="val", obj_id=1, r
     return verts, faces, cam, t.contiguous(), q.contiguous()
 
 
-def render_depth_check(device, smi, args, label="7a"):
-    """render_depth at an evaluation's shape (``evaluation_depth_args``),
-    each compared launch written over NaN, against its plain version and
-    against one block per pose (``face_slices`` 1): both bitwise equal; then
-    both plans timed (ok needs the automatic plan's device time). Returns
-    (ok, timing row of the automatic plan, the one-block plan's (ms, device
-    ms), the automatic plan's face slices)."""
+def render_depth_check(device, smi, args, label="7a", backface_cull=False,
+                       shape="the evaluation shape"):
+    """render_depth at an evaluation's shape (``evaluation_depth_args``;
+    every face drawn unless ``backface_cull``), each compared launch written
+    over NaN, against its plain version and against one block per pose
+    (``face_slices`` 1): both bitwise equal; then both plans timed (ok needs
+    the automatic plan's device time). Returns (ok, timing row of the
+    automatic plan, the one-block plan's (ms, device ms), the automatic
+    plan's face slices)."""
     import torch
 
     from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
@@ -1267,10 +1296,10 @@ def render_depth_check(device, smi, args, label="7a"):
     one = {"face_slices": 1}
     plan = launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width, t.shape[0],
                        depth_only=True)
-    d, fresh = on_nan_block(lambda: render_depth(*args, backface_cull=False, device=device))
-    d1, fresh1 = on_nan_block(
-        lambda: render_depth(*args, backface_cull=False, device=device, tuning=one))
-    ref = render_depth_reference(*args, backface_cull=False)
+    draw = functools.partial(render_depth, *args, backface_cull=backface_cull, device=device)
+    d, fresh = on_nan_block(draw)
+    d1, fresh1 = on_nan_block(lambda: draw(tuning=one))
+    ref = render_depth_reference(*args, backface_cull=backface_cull)
     torch.cuda.synchronize()
     both = (d > 0) & (ref > 0)
     rel = float(((d - ref).abs() / ref.clamp(min=1e-30))[both].max())
@@ -1279,15 +1308,16 @@ def render_depth_check(device, smi, args, label="7a"):
     sync = torch.cuda.synchronize
     times = {}
     for name, tuning in (("auto", None), ("one", one), ("one again", one), ("auto again", None)):
-        run = functools.partial(render_depth, *args, backface_cull=False, device=device,
-                                tuning=tuning)
+        run = functools.partial(draw, tuning=tuning)
         times[name] = (time_ms(run, 50, sync), device_ms(run, 20))
     ms, dev_ms = min(times["auto"][0], times["auto again"][0]), times["auto"][1]
     ms1, dev_ms1 = min(times["one"][0], times["one again"][0]), times["one"][1]
-    plain_ms = time_ms(lambda: render_depth_reference(*args, backface_cull=False), 3, sync)
+    plain_ms = time_ms(lambda: render_depth_reference(*args, backface_cull=backface_cull), 3,
+                       sync)
     b_ms, b_by, ops, pairs = bound_ms(args, epilogue="depth")
-    print(f"phase {label} render_depth at the evaluation shape ({faces.shape[0]} faces, "
-          f"{cam.width}x{cam.height}, {t.shape[0]} poses, every face drawn): "
+    drawn = "front faces" if backface_cull else "every face drawn"
+    print(f"phase {label} render_depth at {shape} ({faces.shape[0]} faces, "
+          f"{cam.width}x{cam.height}, {t.shape[0]} poses, {drawn}): "
           f"{plan['face_slices']} face slices of up to {plan['face_cap']} faces "
           f"({t.shape[0] * plan['face_slices']} blocks of {plan['threads']} threads, "
           f"{plan['smem_bytes']} B of shared memory each); written over NaN {fresh and fresh1}, "
@@ -1399,7 +1429,8 @@ class RunnerLog:
                 self.calls.append(dict(seed=seed, params=params, verts=verts, faces=faces,
                                        n_steps=n_steps,
                                        variant=variant, args=(cam, obs, prior_o, prior_t),
-                                       out=out, launches=render_score.launches - l0,
+                                       rest=rest, out=out,
+                                       launches=render_score.launches - l0,
                                        evals=self.evals.n - e0))
                 return out
 
@@ -2243,16 +2274,16 @@ def sweep_script(name):
                     if name == "torch_smc_benchmark_steri" else script)
 
 
-def sweep_reference(name, file):
+def sweep_reference(name, file, fixture=REEVALUATED):
     """The JAX errors an artifact is held to: the JAX package's evaluation
-    of today where it does not reproduce the checked-in errors, else those.
-    Returns (errors, whether they are the re-evaluation)."""
+    of today (in ``fixture``) where it does not reproduce the checked-in
+    errors, else those. Returns (errors, whether they are the re-evaluation)."""
     import numpy as np
 
     from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact
 
     key = f"{name}/{file}"
-    with np.load(REEVALUATED) as f:
+    with np.load(fixture) as f:
         if f"{key}/vsd" in f.files:
             return {k: f[f"{key}/{k}"] for k in ("adds", "vsd", "vsdbop", "visib")}, True
     return load_artifact(REPO / "data/exp_pro" / name / "errors" / file), False
@@ -2584,6 +2615,424 @@ def sweeps_phase(device, failures, smi):
     return rows, eval_launches
 
 
+# -- phase 15: the hyperparameter searches and the synthetic BOP generator ------
+
+# the JAX package's checked-in searches (data/exp_raw/<name>, data/exp_pro/<name>):
+# each search's script and the arguments its run used, read off its artifacts
+# (dataset, split and scenes from the configs, the trial count from
+# trials.csv, the time budget from n_steps x step_time: 0.22 s of 0.25 s on
+# synth, 0.38-0.44 s of 0.5 s on synthcad); --seed 0 reproduces every
+# candidate of its trials.csv
+HYPEROPT_EXPERIMENTS = {
+    "smc_mh_hyperopt": ("torch_smc_mh_hyperopt", ["--trials", "30", "--scenes", "1"]),
+    "smc_mh_hyperopt_cad": ("torch_smc_mh_hyperopt",
+                            ["--dataset", "synthcad", "--testset", "train", "--scenes", "1", "2",
+                             "3", "--trials", "10", "--time-budget", "0.5",
+                             "--experiment-name", "smc_mh_hyperopt_cad"]),
+    "mcmc_hyperopt_mh_sampler": ("torch_mcmc_baseline_hyperopt",
+                                 ["--trials", "8", "--samplers", "mh_sampler"]),
+    "mcmc_hyperopt_mtm_sampler": ("torch_mcmc_baseline_hyperopt",
+                                  ["--trials", "8", "--samplers", "mtm_sampler"]),
+    "mcmc_hyperopt_cad_mh": ("torch_mcmc_baseline_hyperopt",
+                             ["--dataset", "synthcad", "--testset", "train", "--scenes", "1", "2",
+                              "--trials", "8", "--time-budget", "0.5", "--samplers",
+                              "mh_sampler", "--experiment-names", "mcmc_hyperopt_cad_mh"]),
+    "mcmc_hyperopt_cad_mtm": ("torch_mcmc_baseline_hyperopt",
+                              ["--dataset", "synthcad", "--testset", "train", "--scenes", "1",
+                               "2", "--trials", "8", "--time-budget", "0.5", "--samplers",
+                               "mtm_sampler", "--experiment-names", "mcmc_hyperopt_cad_mtm"]),
+}
+REEVALUATED_HYPEROPT = REPO / "tests/fixtures/reevaluated_errors_hyperopt.npz"
+# phase 15b: these searches with 2 trials on scene 1 of their split
+HYPEROPT_RUNS = ("smc_mh_hyperopt", "smc_mh_hyperopt_cad", "mcmc_hyperopt_mh_sampler",
+                 "mcmc_hyperopt_mtm_sampler")
+# the JAX script's rotation draws at --seed 77 (synthcad train), for phase 15d
+JAX_QUATERNIONS = REPO / "tests/fixtures/jax_generator_quaternions.json"
+# generated scenes against the checked-in ones: per-mask IoU, visible
+# fraction, depth PNG units where both scenes' masks agree
+GEN_MASK_IOU = 0.98
+GEN_VISIB_TOL = 0.01
+GEN_DEPTH_UNITS = 1
+
+
+def hyperopt_argv(name, extra=()):
+    """``torch_smc_mh_hyperopt.py``'s arguments of a checked-in search at
+    --seed 0 (the MCMC script's through its ``search_argvs``), then
+    ``extra`` (later options win)."""
+    import importlib
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    script, argv = HYPEROPT_EXPERIMENTS[name]
+    argv = [*argv, "--seed", "0"]
+    if script == "torch_mcmc_baseline_hyperopt":
+        mcmc = importlib.import_module(script)
+        [argv] = mcmc.search_argvs(mcmc.parse_args(argv))
+    return [*argv, *extra]
+
+
+def hyperopt_script():
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_smc_mh_hyperopt
+
+    return torch_smc_mh_hyperopt
+
+
+def read_trials(path):
+    """A trials.csv as a list of dicts of floats (trial as int)."""
+    import csv
+
+    with open(path, newline="") as fh:
+        return [{k: (int(v) if k == "trial" else float(v)) for k, v in r.items()}
+                for r in csv.DictReader(fh)]
+
+
+def hyperopt_eval_parity(device, failures):
+    """Phase 15a: the port's evaluate_scene on the card on every estimate
+    artifact of the six JAX searches against the JAX errors
+    (``sweep_reference`` with the hyperopt fixture) under phase 14a's gates;
+    each trial's cost (1 - VSD recall over its scenes) from the reference
+    errors and from the port's beside the checked-in trials.csv. Returns the
+    render_depth launches."""
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_depth
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+    from bayesianposeestimation.jl_tpu_torch.utils import evaluation as ev
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import (
+        load_artifact,
+        parse_savename,
+    )
+
+    bopval = bop_val_script()
+    params = Parameters(device=device)
+    cache = {}
+    t0 = time.perf_counter()
+    render_depth.launches = 0
+    n_artifacts, n_reeval, worst_adds, worst_vsd = 0, 0, 0.0, 0.0
+    for name in HYPEROPT_EXPERIMENTS:
+        counts = {}  # trial -> [ref correct, ours correct, total]
+        reeval = near = 0
+        files = sorted((REPO / "data/exp_raw" / name).glob("*.npz"))
+        for path in files:
+            raw = load_artifact(path)
+            ours = bopval.evaluate_scene(raw["__config__"], str(BOP_DIR), params,
+                                         list(raw["result_rows"]), device, cache)
+            ref, is_reeval = sweep_reference(name, path.name, REEVALUATED_HYPEROPT)
+            reeval += is_reeval
+            bad, w_adds, w_vsd, n_near = compare_errors(ours, ref, SWEEP_ADDS_REL_TOL,
+                                                        SWEEP_VSD_ABS_TOL)
+            worst_adds, worst_vsd = max(worst_adds, w_adds), max(worst_vsd, w_vsd)
+            near += n_near
+            if bad:
+                failures.append(f"phase 15a {name}/{path.name}: {bad}")
+                print(f"phase 15a {name}/{path.name}: FAILED {bad}")
+            c = counts.setdefault(int(parse_savename(path.name)["trial"]), [0, 0, 0])
+            n_ref, n_tot = ev.threshold_errors(ref["vsd"], ev.BOP18_THETA)
+            c[0] += n_ref
+            c[1] += ev.threshold_errors(ours["vsd"], ev.BOP18_THETA)[0]
+            c[2] += n_tot
+        n_artifacts += len(files)
+        n_reeval += reeval
+        trials = read_trials(REPO / "data/exp_pro" / name / "trials.csv")
+        costs = []
+        for h in trials:
+            n_ref, n_ours, n_tot = counts[h["trial"]]
+            costs.append((h["trial"], round(h["cost"], 4), round(1 - n_ref / n_tot, 4),
+                          round(1 - n_ours / n_tot, 4)))
+            if abs(n_ref - n_ours) > near:
+                failures.append(f"phase 15a {name} trial {h['trial']}: cost from the port's "
+                                f"errors {1 - n_ours / n_tot} vs the reference's "
+                                f"{1 - n_ref / n_tot}")
+        changed = [c[0] for c in costs if c[1] != c[2]]
+        print(f"phase 15a {name}: {len(files)} artifacts ({reeval} held to the re-evaluation), "
+              f"{near} entries near a threshold; trial costs (trial, checked-in, from the "
+              f"reference errors, from the port's): {json.dumps(costs)}; the reference moves "
+              f"the cost of trials {changed}")
+    print(f"phase 15a evaluation of {n_artifacts} JAX estimate artifacts ({n_reeval} held to the "
+          f"JAX package's re-evaluation) on the card: {time.perf_counter() - t0:.2f} s, "
+          f"render_depth launches {render_depth.launches}; max ADD-S relative |d| "
+          f"{worst_adds:.3g} (limit {SWEEP_ADDS_REL_TOL}), max VSD/VSDBOP |d| {worst_vsd:.4f} "
+          f"(limit {SWEEP_VSD_ABS_TOL})")
+    if n_artifacts != 108:
+        failures.append(f"phase 15a evaluated {n_artifacts} artifacts, not 108")
+    return render_depth.launches
+
+
+def hyperopt_runs(device, failures, smi, workdir):
+    """Phases 15b and 15c: each of HYPEROPT_RUNS through
+    ``torch_smc_mh_hyperopt.main`` at its real settings with 2 trials on
+    scene 1, into ``workdir``; then render_score with the trial's hyper row
+    on the largest model's final particles against its plain version.
+    Returns the kernels-line rows."""
+    import numpy as np
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+    from bayesianposeestimation.jl_tpu_torch.utils import evaluation
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact
+
+    hyp = hyperopt_script()
+    rows = []
+    for name in HYPEROPT_RUNS:
+        argv = hyperopt_argv(name, ["--trials", "2", "--scenes", "1", "--device", device,
+                                    "--bop-dir", str(BOP_DIR)])
+        args = hyp.parse_args(argv)
+        per_step = 2 if args.sampler.startswith("mtm") else 1
+        calibrations = []
+        inner = evaluation.mean_step_time
+
+        def counted(*a, **kw):
+            calibrations.append(a[1].faces.shape[0])
+            return inner(*a, **kw)
+
+        evaluation.mean_step_time = counted
+        render_score.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with EvaluationCount() as evals, RunnerLog(evals) as log:
+                result = hyp.main(argv, data_root=workdir)
+        finally:
+            evaluation.mean_step_time = inner
+        dt = time.perf_counter() - t0
+        launches = render_score.launches
+        calib = result["calibration"][1]
+        steps = {k: v["n_steps"] for k, v in calib.items()}
+        by_object = {}  # the chain runs of each object's runner (its mesh array)
+        for c in log.calls:
+            by_object.setdefault(id(c["verts"]), []).append(c)
+        same_steps = all(len({c["n_steps"] for c in cs}) == 1 for cs in by_object.values())
+        one_calibration = len(calibrations) == len(by_object) == len(calib)
+        wrong = [(c["launches"], c["evals"], c["n_steps"]) for c in log.calls
+                 if not c["launches"] == c["evals"] == 1 + per_step * (c["n_steps"] - 1)]
+        raws = [load_artifact(p) for p in sorted(
+            (Path(workdir) / "exp_raw" / f"{args.experiment_name}_cuda").glob("*.npz"))]
+        finite = len(raws) == 2 and all(
+            np.isfinite(r["t"]).all() and np.isfinite(r["q"]).all() and np.isfinite(r["score"])
+            for raw in raws for r in raw["result_rows"])
+        n_rows = sum(len(raw["result_rows"]) for raw in raws)
+        trials = read_trials(Path(workdir) / "exp_pro" / f"{args.experiment_name}_cuda" /
+                             "trials.csv")
+        jax_trials = read_trials(REPO / "data/exp_pro" / name / "trials.csv")[:2]
+        keys = ["trial", *(n for n, *_ in hyp.SPACE), "cost"]
+        same_cands = (len(trials) == 2 and all(list(h) == keys for h in trials) and all(
+            abs(a[k] - b[k]) <= 1e-12 for a, b in zip(trials, jax_trials) for k in keys[:-1]))
+        jax_steps = sorted({int(load_artifact(p)["n_steps"]) for p in
+                            (REPO / "data/exp_raw" / name).glob("*scene_id=1,*.npz")})
+        walls = [r["time"] for raw in raws for r in raw["result_rows"]]
+        print(f"phase 15b {name} (scene 1, 2 trials, {args.time_budget} s per pose) on {smi}: "
+              f"{dt:.2f} s in all; calibrations by model faces {calibrations}; steps per "
+              f"budget by object {json.dumps(steps)} (step ms "
+              f"{json.dumps({k: round(v['step_time'] * 1e3, 4) for k, v in calib.items()})}; "
+              f"the JAX run's on its TPU, scene 1: {jax_steps}); one step count per object for "
+              f"both trials {same_steps}; {len(log.calls)} chain runs for {n_rows} rows; wall "
+              f"per pose mean {np.mean(walls):.4f} s max {np.max(walls):.4f} s; launches "
+              f"{launches} = evaluations {evals.n}; costs "
+              f"{[round(h['cost'], 4) for h in trials]} (JAX "
+              f"{[round(h['cost'], 4) for h in jax_trials]}); candidates equal the JAX "
+              f"search's first two {same_cands}")
+        if not one_calibration:
+            failures.append(f"phase 15b {name}: {len(calibrations)} calibrations for "
+                            f"{len(calib)} objects")
+        if not same_steps or len(log.calls) != n_rows:
+            failures.append(f"phase 15b {name}: step counts differ between trials, or "
+                            f"{len(log.calls)} chain runs for {n_rows} rows")
+        if not finite:
+            failures.append(f"phase 15b {name}: non-finite estimates or missing artifacts")
+        if wrong or launches != evals.n or launches == 0:
+            failures.append(f"phase 15b {name}: launches vs evaluations {wrong[:3]}, total "
+                            f"{launches} vs {evals.n}")
+        if not same_cands:
+            failures.append(f"phase 15b {name}: trials.csv vs the JAX search's candidates")
+        # 15c: the kernel with the trial's hyper row on the largest model's final particles
+        call = max(log.calls[::-1], key=lambda c: c["faces"].shape[0])
+        hyper = call["rest"][0]
+        row_h = torch.tensor([hyper["pixel_sigma"], hyper["association_sigma"]],
+                             dtype=torch.float32, device=device)
+        kernel_args = sweep_kernel_args(call, device, args.n_particles if per_step == 2 else None)
+        shape = (f"{kernel_args[1].shape[0]} faces {kernel_args[2].width}x"
+                 f"{kernel_args[2].height} {kernel_args[3].shape[0]} poses")
+        row, res = score_row(kernel_args, device, f"phase 15c render_score[association+hyper] "
+                             f"at {name}", smi, hyper=row_h)
+        if not res["ok"] or row[1] is None:
+            failures.append(f"phase 15c render_score+hyper at {name}: vs plain, or no device "
+                            f"time")
+        rows.append((f"render_score[association+hyper] {name} {shape}", launches,
+                     f"phase 15b torch_smc_mh_hyperopt.main, 2 trials on scene 1",
+                     res["max_abs_err"], row))
+    return rows
+
+
+def compare_generated_scene(out_dir, ref_dir, img_ids):
+    """A generated scene directory against a checked-in one, image by image:
+    (failed checks, measured differences). Obj ids and instance counts must
+    be equal, cam_t_m2c within 1e-9 mm, cam_R_m2c within 1e-5, the cameras
+    equal, each mask_visib within GEN_MASK_IOU, each visib_fract within
+    GEN_VISIB_TOL, each depth PNG within GEN_DEPTH_UNITS wherever both
+    scenes' masks (the union over the image's instances) agree."""
+    import numpy as np
+
+    from bayesianposeestimation.jl_tpu_torch.utils.png import read_png
+
+    out_dir, ref_dir = Path(out_dir), Path(ref_dir)
+
+    def load(d, name):
+        return json.loads((d / name).read_text())
+
+    gt_o, gt_r = load(out_dir, "scene_gt.json"), load(ref_dir, "scene_gt.json")
+    info_o, info_r = load(out_dir, "scene_gt_info.json"), load(ref_dir, "scene_gt_info.json")
+    cam_o, cam_r = load(out_dir, "scene_camera.json"), load(ref_dir, "scene_camera.json")
+    bad = []
+    stats = dict(t_mm=0.0, R=0.0, min_iou=1.0, mask_px=0, visib=0.0, depth_units=0,
+                 depth_px_over=0, depth_units_all=0)
+    for k in (str(i) for i in img_ids):
+        if [g["obj_id"] for g in gt_o[k]] != [g["obj_id"] for g in gt_r[k]]:
+            bad.append(f"image {k}: obj ids or instance count")
+            continue
+        if cam_o[k] != cam_r[k]:
+            bad.append(f"image {k}: camera")
+        union_o = union_r = 0
+        for j, (a, b) in enumerate(zip(gt_o[k], gt_r[k])):
+            stats["t_mm"] = max(stats["t_mm"], float(np.abs(
+                np.subtract(a["cam_t_m2c"], b["cam_t_m2c"])).max()))
+            stats["R"] = max(stats["R"], float(np.abs(
+                np.subtract(a["cam_R_m2c"], b["cam_R_m2c"])).max()))
+            m_o = read_png(out_dir / "mask_visib" / f"{int(k):06d}_{j:06d}.png") > 0
+            m_r = read_png(ref_dir / "mask_visib" / f"{int(k):06d}_{j:06d}.png") > 0
+            iou = (m_o & m_r).sum() / max((m_o | m_r).sum(), 1)
+            stats["min_iou"] = min(stats["min_iou"], float(iou))
+            stats["mask_px"] = max(stats["mask_px"], int((m_o ^ m_r).sum()))
+            stats["visib"] = max(stats["visib"], abs(info_o[k][j]["visib_fract"]
+                                                     - info_r[k][j]["visib_fract"]))
+            union_o, union_r = union_o | m_o, union_r | m_r
+        d_o = read_png(out_dir / "depth" / f"{int(k):06d}.png").astype(np.int64)
+        d_r = read_png(ref_dir / "depth" / f"{int(k):06d}.png").astype(np.int64)
+        diff = np.abs(d_o - d_r)
+        agree = union_o == union_r
+        stats["depth_units"] = max(stats["depth_units"], int(diff[agree].max()))
+        stats["depth_px_over"] += int((diff[agree] > GEN_DEPTH_UNITS).sum())
+        stats["depth_units_all"] = max(stats["depth_units_all"], int(diff.max()))
+    if cam_o.keys() != {str(i) for i in img_ids} or gt_o.keys() != cam_o.keys():
+        bad.append(f"images {sorted(gt_o)} written, not {list(img_ids)}")
+    if stats["t_mm"] > 1e-9:
+        bad.append(f"cam_t_m2c |d| {stats['t_mm']} mm")
+    if stats["R"] > 1e-5:
+        bad.append(f"cam_R_m2c |d| {stats['R']}")
+    if stats["min_iou"] < GEN_MASK_IOU:
+        bad.append(f"mask IoU {stats['min_iou']:.4f}")
+    if stats["visib"] > GEN_VISIB_TOL:
+        bad.append(f"visib_fract |d| {stats['visib']:.4f}")
+    if stats["depth_px_over"]:
+        bad.append(f"{stats['depth_px_over']} depth pixels over {GEN_DEPTH_UNITS} unit where the "
+                   f"masks agree")
+    return bad, stats
+
+
+def gt_quaternions(scene_dir):
+    """The rotations of a scene's annotations as quaternions [4], in the
+    order the generator draws them (image by image, instance by instance)."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import quaternions as quat
+
+    gt = json.loads((Path(scene_dir) / "scene_gt.json").read_text())
+    return [quat.matrix_to_quat(torch.tensor(g["cam_R_m2c"], dtype=torch.float32)
+                                .reshape(3, 3)).numpy()
+            for k in sorted(gt, key=int) for g in gt[k]]
+
+
+def generator_script():
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_make_synthetic_bop
+
+    return torch_make_synthetic_bop
+
+
+GENERATOR_RUNS = (
+    # (label, arguments, checked-in scene, images, rotations)
+    ("easy, synth val scene 1", ["--seed", "0"], "synth/val/000001", range(8), "scene_gt"),
+    ("cad, synthcad train scene 1", ["--profile", "cad", "--split", "train", "--n-scenes", "1",
+                                     "--n-images", "2", "--seed", "77"],
+     "synthcad/train/000001", range(2), "jax"),
+)
+
+
+def generator_phase(device, failures, smi, workdir):
+    """Phase 15d: the generator's easy and cad profiles into ``workdir`` with
+    the checked-in (easy) or the JAX script's (cad) rotations injected,
+    against the checked-in scenes (``compare_generated_scene``), one
+    render_depth launch per solo render; then render_depth at the 160x160
+    window on the 128,000-face model at the cad scene's pose of it (front
+    faces), bitwise against its plain version and timed. Returns (the cad
+    run's render_depth launches, timing row, relative depth max)."""
+    import numpy as np
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import quaternions as quat
+    from bayesianposeestimation.jl_tpu_torch.camera import CvCamera
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import mesh_tensors, render_depth
+
+    gen = generator_script()
+    launches = {}
+    for label, argv, ref, img_ids, rot in GENERATOR_RUNS:
+        args = gen.parse_args(["--root", str(Path(workdir) / "bop"), "--device", device, *argv])
+        draws = (gt_quaternions(BOP_DIR / ref) if rot == "scene_gt" else
+                 json.loads(JAX_QUATERNIONS.read_text())["quaternions"])
+        it = iter(draws)
+        render_depth.launches = 0
+        out = gen.generate(args, draw_quaternion=lambda: np.asarray(next(it), np.float32))
+        launches[label] = render_depth.launches
+        bad, stats = compare_generated_scene(out["split_dir"] / Path(ref).name, BOP_DIR / ref,
+                                             img_ids)
+        secs = out["seconds"]
+        print(f"phase 15d generator {label} on {smi}: {len(secs)} images in {sum(secs):.3f} s "
+              f"({np.mean(secs):.4f} s per image, first {secs[0]:.4f} s, the rest "
+              f"{np.mean(secs[1:]):.4f} s); {out['renders']} solo renders, render_depth "
+              f"launches {render_depth.launches}; against the checked-in scene: "
+              f"{json.dumps(stats)}; {bad or 'all gates met'}")
+        if bad:
+            failures.append(f"phase 15d generator {label}: {bad}")
+        if render_depth.launches != out["renders"]:
+            failures.append(f"phase 15d generator {label}: {render_depth.launches} launches for "
+                            f"{out['renders']} solo renders")
+    # the kernel at the 128,000-face model's pose in the cad scene (image 1)
+    gt = json.loads((Path(workdir) / "bop/synthcad/train/000001/scene_gt.json").read_text())
+    g = gt["1"][0]
+    mesh = gen.build_objects("cad")[g["obj_id"]]
+    verts, faces = mesh_tensors(mesh.vertices, mesh.faces, device)
+    t = np.asarray(g["cam_t_m2c"]) / 1000.0
+    q = quat.matrix_to_quat(torch.tensor(g["cam_R_m2c"], dtype=torch.float32).reshape(3, 3))
+    cam = CvCamera(width=640, height=480, f_x=580.0, f_y=580.0, c_x=319.5, c_y=239.5,
+                   near=0.01, far=10.0)
+    win = gen.window_camera(cam, *gen.window_origin(cam, t))
+    args = (verts, faces, win, torch.as_tensor(t[None], dtype=torch.float32, device=device),
+            q[None].to(device).contiguous())
+    ok, timing, one_block, slices = render_depth_check(
+        device, smi, args, "15d", backface_cull=True,
+        shape=f"the generator's {gen.WINDOW}x{gen.WINDOW} window")
+    if not ok:
+        failures.append("phase 15d render_depth at the generator's shape: vs plain, vs one "
+                        "block per pose, or no device time")
+    return launches["cad, synthcad train scene 1"], timing, slices
+
+
+def hyperopt_phase(device, failures, smi):
+    """Phase 15: the hyperparameter searches and the synthetic BOP generator.
+    Returns (the kernels-line rows of render_score at the searches' shapes,
+    the generator's render_depth row)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    hyperopt_eval_parity(device, failures)
+    print(f"phase 15a took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t1 = time.perf_counter()
+        rows = hyperopt_runs(device, failures, smi, workdir)
+        print(f"phase 15b-c took {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        gen_launches, gen_timing, gen_slices = generator_phase(device, failures, smi, workdir)
+        print(f"phase 15d took {time.perf_counter() - t1:.1f} s")
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return rows, (gen_launches, gen_timing, gen_slices)
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "render_score.cu").is_file():
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -2863,6 +3312,10 @@ def main() -> int:
     sweep_rows, _ = sweeps_phase(dev, failures, smi)
     phase_done(14)
 
+    # -- phase 15: the hyperparameter searches and the synthetic BOP generator ------
+    hyperopt_rows, (gen_launches, gen_timing, gen_slices) = hyperopt_phase(dev, failures, smi)
+    phase_done(15)
+
     if failures:
         print(f"chip_smoke FAILED: {failures}", file=sys.stderr)
         return 1
@@ -2956,6 +3409,11 @@ def main() -> int:
         entries.append(entry(name, 930, n_launch, path, err, row))
     for name, n_launch, path, err, row in sweep_rows:
         entries.append(entry(name, 937, n_launch, path, err, row))
+    for name, n_launch, path, err, row in hyperopt_rows:
+        entries.append(entry(name, 938, n_launch, path, err, row))
+    entries.append(entry("render_depth 128000 faces 160x160 1 pose (generator)", 930,
+                         gen_launches, "phase 15d synthcad generator, train scene 1 images 0-1",
+                         gen_timing[5], gen_timing, face_slices=gen_slices))
     for e in entries:
         if e["launches"] <= 0:
             print(f"chip_smoke FAILED: {e['name']} was not launched on its path",
