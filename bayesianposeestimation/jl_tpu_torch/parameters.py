@@ -63,8 +63,17 @@ class Parameters:
     w_r_sym: float = 0.9
     w_t_sym: float = 0.9
 
+    @property
+    def img_size(self):
+        return (self.width, self.height)
+
     def replace(self, **kw) -> "Parameters":
         return dataclasses.replace(self, **kw)
+
+    def cast(self, x):
+        """``x`` as a tensor of the configured float type (on its own
+        device, if it is a tensor)."""
+        return torch.as_tensor(x, dtype=self.float_type)
 
 
 @dataclass(frozen=True)
@@ -93,6 +102,10 @@ class Experiment:
     def with_depth_image(self, depth_image) -> "Experiment":
         """The same experiment with another observation (streaming filters)."""
         return Experiment(self.scene, self.prior_o, self.prior_t, self.prior_r, depth_image)
+
+    @property
+    def camera(self):
+        return self.scene["camera"]
 
     def to(self, device) -> "Experiment":
         """The same experiment with every tensor on ``device``."""

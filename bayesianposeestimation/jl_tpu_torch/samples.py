@@ -23,10 +23,20 @@ class Sample:
     log_prob: Any = None
     log_like: Any = None
 
+    @property
+    def names(self):
+        return tuple(self.variables.keys())
+
     def __getitem__(self, names):
         if isinstance(names, str):
             names = (names,)
         return Sample({k: self.variables[k] for k in names})
+
+    def merge(self, other) -> "Sample":
+        """Right-biased merge of the variables of ``other`` (a Sample or a
+        dict); the log densities are reset."""
+        other_vars = other.variables if isinstance(other, Sample) else other
+        return Sample({**self.variables, **other_vars})
 
     def set_logdensities(self, log_prob, log_like) -> "Sample":
         return replace(self, log_prob=log_prob, log_like=log_like)

@@ -37,6 +37,8 @@ __all__ = [
     "test_targets",
     "gt_rows",
     "gt_info",
+    "gt_dataframe",
+    "gt_info_dataframe",
     "load_depth_image",
     "load_mask_image",
     "load_segmentation",
@@ -109,6 +111,11 @@ def test_targets(datasubset_path, scene_id, targets_json="test_targets_bop19.jso
               for t in targets if int(t["scene_id"]) == int(scene_id)}
     return [r for r in train_targets(datasubset_path, scene_id)
             if (r["scene_id"], r["img_id"], r["obj_id"]) in wanted]
+
+
+# the JAX package's DataFrame readers, as lists of the same row dicts
+gt_dataframe = gt_rows
+gt_info_dataframe = gt_info
 
 
 def bop_test_or_train(bop_dir, dataset, testset, scene_id) -> list:

@@ -52,6 +52,7 @@ __all__ = [
     "recall_ci",
     "mean_step_time",
     "steps_for_time_budget",
+    "realized_step_time",
 ]
 
 ADDS_THETA = 0.1
@@ -379,6 +380,13 @@ def mean_step_time(seed, model, sampler, n_particles=None, max_seconds=0.5,
     if return_overhead:
         return float(t_step), float(overhead)
     return float(t_step)
+
+
+def realized_step_time(wall, n_steps, overhead=0.0):
+    """The time per step one run of ``n_steps`` realized: its wall time less
+    the per-run ``overhead``, per step (the run's own costs beyond the
+    overhead fall on its steps)."""
+    return max(wall - overhead, 0.0) / max(n_steps, 1)
 
 
 def steps_for_time_budget(step_time, time_budget, minimum=2, overhead=0.0, safety=0.92):

@@ -150,7 +150,21 @@ Phases (each prints its results; any failure exits non-zero):
      visibilities, depth), one render_depth launch per solo render, and
      render_depth at the generator's 160x160 window on the 128,000-face
      model (bitwise against its plain version, timed, its device time
-     required).
+     required);
+  16. the JAX package's BOP runs that had no port counterpart, the budget
+     repair and synth_steri on demand: (a) the port's evaluate_scene on the
+     nine estimate artifacts of smc_bop_val, smc_bop_val2{,_b005,_b010},
+     smc_bop_cad_val2 and hard_cases (BOP_RUNS) under phase 14a's gates,
+     against tests/fixtures/reevaluated_errors_bop_runs.npz where the
+     checked-in errors are stale, and render_depth at the hard split's
+     evaluation shape (bitwise, timed); (b) scene_inference on the first two
+     images of hard scene 1, val2 scene 1 at 0.05 s and synthcad val2 scene
+     1 (finite, launches = evaluations), render_score[association] at the
+     hard and val2 crops against its plain version, timed, and the mean wall
+     per pose within 1.05 x the budget for mcmc_benchmark's mh_sampler at
+     0.5 s and smc_benchmark's 100 particles at 0.05 s on scene 1; (c)
+     scripts/torch_smc_benchmark_steri.py into a --bop-dir without the set:
+     the generator makes it, then one 0.25 s config on two images.
 Every phase prints the seconds since the start when it ends.
 Phase 2 also holds ``render_depth`` and ``render_score(return_mu=True)``
 against their plain versions and each other, and times them at the tracking
@@ -174,6 +188,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -3033,6 +3048,263 @@ def hyperopt_phase(device, failures, smi):
     return rows, (gen_launches, gen_timing, gen_slices)
 
 
+# -- phase 16: the JAX package's BOP runs without a port counterpart ------------
+
+# the JAX package's runs of scripts/smc_bop_val.py (data/exp_raw/<name>,
+# data/exp_pro/<name>), all smc_mh: each run's arguments, read off its
+# artifacts (split and scenes from the configs; the budget from n_steps x
+# step_time: 0.43-0.47 s of 0.5 s, 0.024 s of 0.05 s and 0.072 s of 0.10 s
+# after the 0.92 safety factor)
+BOP_RUNS = {
+    "smc_bop_val": ["--dataset", "synth", "--testset", "val", "--scenes", "1"],
+    "smc_bop_val2": ["--dataset", "synth", "--testset", "val2", "--scenes", "1", "2", "3"],
+    "smc_bop_val2_b005": ["--dataset", "synth", "--testset", "val2", "--scenes", "1",
+                          "--time-budget", "0.05"],
+    "smc_bop_val2_b010": ["--dataset", "synth", "--testset", "val2", "--scenes", "1",
+                          "--time-budget", "0.1"],
+    "smc_bop_cad_val2": ["--dataset", "synthcad", "--testset", "val2", "--scenes", "1", "2"],
+    "hard_cases": ["--dataset", "synth", "--testset", "hard", "--scenes", "1"],
+}
+# the JAX package's errors of today where the checked-in errors are stale (the
+# six synth artifacts of the val / val2 runs; scripts/reevaluate_errors.py)
+REEVALUATED_BOP_RUNS = REPO / "tests/fixtures/reevaluated_errors_bop_runs.npz"
+# phase 16b: scene_inference on scene 1 of each new split, its first two images
+BOP_RUN_CUTS = ("hard_cases", "smc_bop_val2_b005", "smc_bop_cad_val2")
+CUT_IMAGES = 2
+BUDGET_SLACK = 1.05  # the port's budget_ok slack (scripts/torch_mcmc_benchmark.py)
+# the two configs whose recorded means overran their budget before the step
+# counts followed the realized pace: (script, arguments, the config's keys)
+BUDGET_RUNS = (
+    ("torch_mcmc_benchmark", ["--mtm-tries", "5", "--budgets", "0.5"],
+     {"sampler": "mh_sampler"}),
+    ("torch_smc_benchmark", ["--particles", "100", "--budgets", "0.05"], {}),
+)
+
+
+def bop_run_args(name, device="cpu", extra=()):
+    """scripts/torch_smc_bop_val.py's arguments and configs for a JAX run of
+    BOP_RUNS (the configs name its artifacts)."""
+    bopval = bop_val_script()
+    args = bopval.parse_args([*BOP_RUNS[name], "--samplers", "smc_mh", "--experiment-name",
+                              name, "--device", device, *extra])
+    return args, bopval.sweep_configs(args)
+
+
+@contextlib.contextmanager
+def first_images(n=CUT_IMAGES):
+    """The BOP readers cut to the first ``n`` images of a scene while in
+    use (targets and ground truth alike)."""
+    from bayesianposeestimation.jl_tpu_torch.utils import bop
+
+    inner = bop.bop_test_or_train
+
+    def cut(*args):
+        rows = inner(*args)
+        keep = sorted({r["img_id"] for r in rows})[:n]
+        return [r for r in rows if r["img_id"] in keep]
+
+    bop.bop_test_or_train = cut
+    try:
+        yield
+    finally:
+        bop.bop_test_or_train = inner
+
+
+def bop_runs_eval_parity(device, failures, smi):
+    """Phase 16a: the port's evaluate_scene on the card on the nine estimate
+    artifacts of the six JAX runs against the JAX errors (``sweep_reference``
+    with REEVALUATED_BOP_RUNS) under phase 14a's gates, each run's recall
+    beside the reference's; then render_depth at the hard split's evaluation
+    shape bitwise against its plain version, timed. Returns (the
+    evaluation's render_depth launches, the timing row, the face slices)."""
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_depth
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact, savename
+
+    bopval = bop_val_script()
+    params = Parameters(device=device)
+    cache = {}
+    t0 = time.perf_counter()
+    render_depth.launches = 0
+    n_artifacts, n_reeval, worst_adds, worst_vsd = 0, 0, 0.0, 0.0
+    for name in BOP_RUNS:
+        _, configs = bop_run_args(name, device)
+        ours_all, refs_all, near = [], [], 0
+        for config in configs:
+            file = savename(config) + ".npz"
+            raw = load_artifact(REPO / "data/exp_raw" / name / file)
+            ours = bopval.evaluate_scene(raw["__config__"], str(BOP_DIR), params,
+                                         list(raw["result_rows"]), device, cache)
+            ref, is_reeval = sweep_reference(name, file, REEVALUATED_BOP_RUNS)
+            n_reeval += is_reeval
+            bad, w_adds, w_vsd, n_near = compare_errors(ours, ref, SWEEP_ADDS_REL_TOL,
+                                                        SWEEP_VSD_ABS_TOL)
+            worst_adds, worst_vsd, near = max(worst_adds, w_adds), max(worst_vsd, w_vsd), \
+                near + n_near
+            if bad:
+                failures.append(f"phase 16a {name}/{file}: {bad}")
+                print(f"phase 16a {name}/{file}: FAILED {bad}")
+            ours_all.append(ours)
+            refs_all.append(ref)
+        n_artifacts += len(configs)
+        [mine], _ = bopval.recall_rows({"smc_mh": ours_all})
+        [theirs], _ = bopval.recall_rows({"smc_mh": refs_all})
+        for k in ("vsd_recall", "adds_recall"):
+            if abs(mine[k] - theirs[k]) * mine["n_gt"] > near + 1e-9:
+                failures.append(f"phase 16a {name} {k}: {mine[k]} vs {theirs[k]}")
+        print(f"phase 16a {name}: {len(configs)} artifacts, n={mine['n_gt']}; VSD / ADD-S / "
+              f"VSDBOP recall {mine['vsd_recall']:.4f} / {mine['adds_recall']:.4f} / "
+              f"{mine['vsdbop_recall']:.4f} (the JAX reference's {theirs['vsd_recall']:.4f} / "
+              f"{theirs['adds_recall']:.4f} / {theirs['vsdbop_recall']:.4f}); {near} entries "
+              f"near a threshold")
+    launches = render_depth.launches
+    print(f"phase 16a evaluation of {n_artifacts} JAX estimate artifacts ({n_reeval} held to the "
+          f"JAX package's re-evaluation) on the card: {time.perf_counter() - t0:.2f} s, "
+          f"render_depth launches {launches}; max ADD-S relative |d| {worst_adds:.3g} (limit "
+          f"{SWEEP_ADDS_REL_TOL}), max VSD/VSDBOP |d| {worst_vsd:.4f} (limit "
+          f"{SWEEP_VSD_ABS_TOL})")
+    if n_artifacts != 9:
+        failures.append(f"phase 16a evaluated {n_artifacts} artifacts, not 9")
+    args = evaluation_depth_args(device, "synth", "hard", 3, REPO / "data/exp_raw/hard_cases")
+    ok, timing, _, slices = render_depth_check(device, smi, args, "16a",
+                                               shape="the hard split's evaluation shape")
+    if not ok:
+        failures.append("phase 16a render_depth at the hard evaluation shape: vs plain, vs one "
+                        "block per pose, or no device time")
+    return launches, timing, slices
+
+
+def bop_run_cuts(device, failures, smi, workdir):
+    """Phase 16b: scripts/torch_smc_bop_val.py's scene_inference on the first
+    two images of scene 1 of each new split (BOP_RUN_CUTS, at its JAX run's
+    budget): finite estimates, launches = likelihood evaluations = 1 +
+    (steps - 1) per chain run; render_score[association] at the hard and
+    val2 crops against its plain version, timed; then the two configs of
+    BUDGET_RUNS through their scripts' ``run`` on scene 1 whole (12 poses:
+    a mean over the three poses of two images swings by a tenth): the mean
+    wall per pose within BUDGET_SLACK x the budget. Returns {label:
+    (launches, kernel row)}."""
+    import numpy as np
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact, savename
+
+    bopval = bop_val_script()
+    launches = {}
+    for name in BOP_RUN_CUTS:
+        args, configs = bop_run_args(name, device)
+        config = configs[0]
+        params = Parameters(n_particles=args.n_particles, time_budget=args.time_budget,
+                            device=device, **bopval.tuned_parameters(args.dataset, "smc_mh"))
+        render_score.launches = 0
+        t0 = time.perf_counter()
+        with first_images(), EvaluationCount() as evals, RunnerLog(evals) as log:
+            result = bopval.scene_inference(config, str(BOP_DIR), params, device)
+        dt = time.perf_counter() - t0
+        launches[name] = render_score.launches
+        rows = result["result_rows"]
+        if not rows or not all(np.isfinite(r["t"]).all() and np.isfinite(r["q"]).all()
+                               and np.isfinite(r["score"]) for r in rows):
+            failures.append(f"phase 16b {name}: no rows or non-finite estimates")
+        wrong = [(c["launches"], c["evals"], c["n_steps"]) for c in log.calls
+                 if not c["launches"] == c["evals"] == 1 + (c["n_steps"] - 1)]
+        if wrong or render_score.launches != evals.n or render_score.launches == 0:
+            failures.append(f"phase 16b {name}: launches vs evaluations {wrong[:3]}, total "
+                            f"{render_score.launches} vs {evals.n}")
+        walls = [r["time"] for r in rows]
+        jax_steps = int(load_artifact(REPO / "data/exp_raw" / name /
+                                      (savename(config) + ".npz"))["n_steps"])
+        print(f"phase 16b {name} ({args.dataset} {args.testset} scene 1, {len(rows)} rows of "
+              f"{CUT_IMAGES} images, {args.time_budget} s per pose) on {smi}: {dt:.2f} s in all; "
+              f"steps per run {[r['n_steps'] for r in rows]} (the JAX run's on its TPU "
+              f"{jax_steps}); wall per pose mean {np.mean(walls):.4f} s max "
+              f"{np.max(walls):.4f} s; launches {render_score.launches} = evaluations {evals.n}")
+    rows_out = {}
+    for label, testset, obj_id, name in (("hard crop", "hard", 3, "hard_cases"),
+                                         ("val2 crop", "val2", 1, "smc_bop_val2_b005")):
+        row = bop_kernel_rows(device, smi, "synth", obj_id, (100,), "16b", testset)[100]
+        if not row[-1]["ok"] or row[1] is None:
+            failures.append(f"phase 16b render_score at the {label}: vs plain, or no device "
+                            f"time")
+        rows_out[label] = (launches[name], row)
+    for script_name, argv, select in BUDGET_RUNS:
+        script, module = sweep_script(script_name)
+        args = script.parse_args([*argv, "--device", device, "--bop-dir", str(BOP_DIR)])
+        [config] = [c for c in module.configs(args)
+                    if all(c[k] == v for k, v in select.items())]
+        result, _ = module.run(config, args, {}, data_root=workdir)
+        walls = [r["time"] for r in result["result_rows"]]
+        mean = float(np.mean(walls))
+        ok = mean <= BUDGET_SLACK * config["pose_time"]
+        print(f"phase 16b budget {script_name} {config['sampler']} {config['n_particles']} x "
+              f"{config['pose_time']} s on {smi}: {len(walls)} poses, steps "
+              f"{[r['n_steps'] for r in result['result_rows']]}, wall per pose "
+              f"{[round(w, 4) for w in walls]}, mean {mean:.4f} s (limit "
+              f"{BUDGET_SLACK * config['pose_time']:.4f} s): {ok}")
+        if not ok:
+            failures.append(f"phase 16b {script_name} {config['sampler']} mean wall {mean:.4f} s "
+                            f"over {BUDGET_SLACK} x {config['pose_time']} s")
+    return rows_out
+
+
+def steri_on_demand(device, failures, smi, workdir):
+    """Phase 16c: scripts/torch_smc_benchmark_steri.py into a --bop-dir that
+    lacks synth_steri, from ``workdir``: the generator makes the set (8
+    images), then one config (100 particles x 0.25 s) on its first two
+    images writes its table; launches = likelihood evaluations."""
+    import csv
+    import os
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+
+    steri, _ = sweep_script("torch_smc_benchmark_steri")
+    bop_dir = Path(workdir) / "bop"
+    argv = ["--bop-dir", str(bop_dir), "--particles", "100", "--budgets", "0.25", "--device",
+            device]
+    cwd = os.getcwd()
+    render_score.launches = 0
+    t0 = time.perf_counter()
+    os.chdir(workdir)
+    try:
+        with first_images(), EvaluationCount() as evals:
+            rc = steri.main(argv)
+    finally:
+        os.chdir(cwd)
+    dt = time.perf_counter() - t0
+    scene = bop_dir / "synth_steri/val/000001"
+    n_images = len(list((scene / "depth").glob("*.png"))) if scene.is_dir() else 0
+    table = Path(workdir) / "data/exp_pro/smc_benchmark_steri_cuda/recall_vs_budget.csv"
+    rows = list(csv.DictReader(open(table, newline=""))) if table.is_file() else []
+    print(f"phase 16c steri script into a --bop-dir without the set on {smi}: rc {rc}, "
+          f"{dt:.2f} s in all; {n_images} images generated; table {rows}; launches "
+          f"{render_score.launches} = evaluations {evals.n}")
+    if rc != 0 or n_images != 8 or len(rows) != 1:
+        failures.append(f"phase 16c steri script: rc {rc}, {n_images} images, {len(rows)} rows")
+    if render_score.launches != evals.n or render_score.launches == 0:
+        failures.append(f"phase 16c launches {render_score.launches} vs evaluations {evals.n}")
+
+
+def bop_runs_phase(device, failures, smi):
+    """Phase 16: the JAX package's BOP runs without a port counterpart, the
+    budget repair and synth_steri on demand. Returns (16a's render_depth
+    launches, timing row and face slices; 16b's kernel rows)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    eval_launches, eval_timing, eval_slices = bop_runs_eval_parity(device, failures, smi)
+    print(f"phase 16a took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t1 = time.perf_counter()
+        rows = bop_run_cuts(device, failures, smi, workdir)
+        print(f"phase 16b took {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        steri_on_demand(device, failures, smi, workdir)
+        print(f"phase 16c took {time.perf_counter() - t1:.1f} s")
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return (eval_launches, eval_timing, eval_slices), rows
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "render_score.cu").is_file():
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -3316,6 +3588,10 @@ def main() -> int:
     hyperopt_rows, (gen_launches, gen_timing, gen_slices) = hyperopt_phase(dev, failures, smi)
     phase_done(15)
 
+    # -- phase 16: the JAX BOP runs without a port counterpart, budgets, steri ------
+    (hard_eval_launches, hard_timing, hard_slices), cut_rows = bop_runs_phase(dev, failures, smi)
+    phase_done(16)
+
     if failures:
         print(f"chip_smoke FAILED: {failures}", file=sys.stderr)
         return 1
@@ -3414,6 +3690,14 @@ def main() -> int:
     entries.append(entry("render_depth 128000 faces 160x160 1 pose (generator)", 930,
                          gen_launches, "phase 15d synthcad generator, train scene 1 images 0-1",
                          gen_timing[5], gen_timing, face_slices=gen_slices))
+    entries.append(entry("render_depth 320 faces 100x100 (hard split evaluation)", 930,
+                         hard_eval_launches, "phase 16a evaluation of the six JAX BOP runs",
+                         hard_timing[5], hard_timing, face_slices=hard_slices))
+    for label, (n_launch, (*row, res)) in cut_rows.items():
+        entries.append(entry(f"render_score[association] synth {label} {res['faces']} faces "
+                             f"30x30 100 poses", 937, n_launch,
+                             f"phase 16b smc_mh on the {label}'s split, scene 1, two images",
+                             res["max_abs_err"], row))
     for e in entries:
         if e["launches"] <= 0:
             print(f"chip_smoke FAILED: {e['name']} was not launched on its path",

@@ -8,10 +8,13 @@ of 15 mm), under the experiment name ``smc_benchmark_steri``.
         --budgets 0.25 0.5 [--device cpu]
 
 Takes ``torch_smc_benchmark.py``'s arguments. The data set is checked in at
-data/bop/synth_steri; where --bop-dir lacks it, the script says so and exits
-non-zero (the generator, scripts/make_synthetic_bop.py, is not ported).
+data/bop/synth_steri; where --bop-dir lacks <dataset>/val, the script first
+makes it there, as the JAX script does, with the port's generator
+(``scripts/torch_make_synthetic_bop.py --dataset synth_steri --seed 7
+--root <bop-dir>``, on --device), then runs the sweep.
 """
 
+import subprocess
 import sys
 from pathlib import Path
 
@@ -22,19 +25,25 @@ import torch_smc_benchmark as bench  # noqa: E402
 
 DATASET = "synth_steri"
 NAME = "smc_benchmark_steri"
+SEED = 7  # the JAX script's generator seed
 
 
 def parse_args(argv=None):
     return bench.parse_args(argv, DATASET, NAME)
 
 
+def generator_argv(args):
+    """The generator's command line that makes the data set in --bop-dir."""
+    return [sys.executable, str(Path(__file__).resolve().parent / "torch_make_synthetic_bop.py"),
+            "--dataset", args.dataset, "--seed", str(SEED), "--root", str(args.bop_dir),
+            "--device", args.device]
+
+
 def main(argv=None):
     args = parse_args(argv)
-    split = Path(args.bop_dir) / args.dataset / args.testset
-    if not split.is_dir():
-        print(f"{split} not found: the {args.dataset} data set is not in {args.bop_dir} "
-              "(scripts/make_synthetic_bop.py makes it; it has no port yet)", file=sys.stderr)
-        return 1
+    if not (Path(args.bop_dir) / args.dataset / "val").is_dir():
+        print(f"generating the {args.dataset} data set in {args.bop_dir}...")
+        subprocess.run(generator_argv(args), check=True)
     bench.main(argv, DATASET, NAME)
     return 0
 

@@ -88,6 +88,23 @@ def _quantize_steps(n):
     return (n // grid) * grid
 
 
+PACE_RUNS = 3  # an object's step count follows the mean pace of its last runs
+
+
+def _paced_steps(obj, pace, budget):
+    """Record a run's realized ``pace`` (seconds per step) for the object
+    and return its next step count: the budget's at the mean pace of its
+    last PACE_RUNS runs, quantized, never above its calibrated count."""
+    from bayesianposeestimation.jl_tpu_torch.utils.evaluation import steps_for_time_budget
+
+    if pace > 0:  # a run within its overhead says nothing of the pace
+        obj["paces"].append(pace)
+    if not obj["paces"]:
+        return obj["n_cal"]
+    return min(obj["n_cal"], _quantize_steps(steps_for_time_budget(
+        float(np.mean(obj["paces"][-PACE_RUNS:])), budget, overhead=obj["overhead"])))
+
+
 def is_mcmc(sampler_name):
     return sampler_name.startswith(("mh", "mtm"))
 
@@ -138,12 +155,21 @@ def _timed(run, device, *args):
     return out, time.perf_counter() - t0
 
 
-def scene_inference(config, bop_dir, parameters, device="cuda"):
+def scene_inference(config, bop_dir, parameters, device="cuda", fixed_steps=False):
     """Estimate a pose for every target row of one scene. Config keys:
     dataset, testset, scene_id, sampler, and optionally variant (the score
     variant), prior (mask | point | point_mask), o_prior (mask | flat |
     flat_is), resolution (crop side) and mode ("steps": run
-    ``parameters.n_steps`` steps instead of the time budget)."""
+    ``parameters.n_steps`` steps instead of the time budget; ``fixed_steps``
+    does the same for a config that keeps the time budget's name).
+
+    Under the time budget each object's step count comes from its
+    calibrated step time (``mean_step_time``, the fastest of its probes),
+    then follows the pace its runs realize: after the warm-up, three probe
+    runs, then each timed run, the next run's count is the budget's at the
+    mean pace (``realized_step_time``) of the object's last three runs,
+    never above the calibrated count. A run is never cut short: its steps
+    are fixed when it starts."""
     from bayesianposeestimation.jl_tpu_torch.models import experiment_samplers as es
     from bayesianposeestimation.jl_tpu_torch.models.fused import (
         fused_posterior,
@@ -153,6 +179,7 @@ def scene_inference(config, bop_dir, parameters, device="cuda"):
     from bayesianposeestimation.jl_tpu_torch.utils import bop
     from bayesianposeestimation.jl_tpu_torch.utils.evaluation import (
         mean_step_time,
+        realized_step_time,
         steps_for_time_budget,
     )
     from bayesianposeestimation.jl_tpu_torch.utils.experiment_io import load_img_mesh
@@ -164,7 +191,8 @@ def scene_inference(config, bop_dir, parameters, device="cuda"):
     if "resolution" in config:
         res = int(config["resolution"])
         parameters = parameters.replace(width=res, height=res)
-    fixed_steps = config.get("mode") == "steps"
+    fixed_steps = fixed_steps or config.get("mode") == "steps"
+    budget = parameters.time_budget
     rows_in = bop.bop_test_or_train(bop_dir, config["dataset"], config["testset"],
                                     config["scene_id"])
     seed = parameters.seed % (2**31)
@@ -176,7 +204,17 @@ def scene_inference(config, bop_dir, parameters, device="cuda"):
     rows = []
     first_steps = first_step_time = None
     calibration = {}
-    runners, meshes = {}, {}  # one calibrated runner and decimated mesh per object
+    objects, meshes = {}, {}  # per object: its calibration and paces; its mesh
+    runners = {}  # per (object, step count): its chain runner
+
+    def runner(obj_key, n):
+        if (obj_key, n) not in runners:
+            mesh = meshes[obj_key[0]]
+            runners[obj_key, n] = make_conditioned_chain(
+                parameters.replace(n_steps=n), mesh.vertices, mesh.faces, variant,
+                sampler_factory, n, n_chains=n_chains, device=device)
+        return runners[obj_key, n]
+
     for i, row in enumerate(rows_in):
         args = image_inputs(row, parameters, prior_mode, o_mode, noise_rng)
         cam, obs, prior_o, prior_t = args
@@ -184,7 +222,7 @@ def scene_inference(config, bop_dir, parameters, device="cuda"):
             meshes[int(row["obj_id"])] = load_img_mesh(row, parameters)[2]
         mesh = meshes[int(row["obj_id"])]
         obj_key = (int(row["obj_id"]), mesh.n_faces)
-        if obj_key not in runners:
+        if obj_key not in objects:
             # calibrated per object: the step time grows with the mesh
             experiment = Experiment(
                 scene={"camera": cam, "verts": mesh.vertices, "faces": mesh.faces},
@@ -196,44 +234,33 @@ def scene_inference(config, bop_dir, parameters, device="cuda"):
                                                  n_chains, max_seconds=0.5,
                                                  return_overhead=True)
             if fixed_steps:
-                n_steps_obj = parameters.n_steps
+                n_cal = parameters.n_steps
             else:
-                n_steps_obj = _quantize_steps(steps_for_time_budget(
-                    step_time, parameters.time_budget, overhead=overhead))
-            print(f"  obj {obj_key[0]} step time {step_time * 1e3:.3f} ms "
-                  f"(+{overhead * 1e3:.1f} ms per run) -> {n_steps_obj} steps per "
-                  f"{parameters.time_budget} s budget")
-
-            def build(n):
-                return make_conditioned_chain(parameters.replace(n_steps=n), mesh.vertices,
-                                              mesh.faces, variant, sampler_factory, n,
-                                              n_chains=n_chains, device=device)
-
-            run_fn = build(n_steps_obj)
-            _timed(run_fn, device, seed + 10**6, *args)  # warm-up
+                n_cal = _quantize_steps(steps_for_time_budget(step_time, budget,
+                                                              overhead=overhead))
+            obj = dict(n_cal=n_cal, n=n_cal, overhead=overhead, paces=[])
+            _timed(runner(obj_key, n_cal), device, seed + 10**6, *args)  # warm-up
             if not fixed_steps:
-                # feedback pass: the realized per-run overhead shows only on
-                # the real runner; if three runs overshoot the budget,
-                # re-derive the count from their overhead and rebuild once
-                wall_probe = float(np.mean([_timed(run_fn, device, seed + 10**6 + k, *args)[1]
-                                            for k in range(1, 4)]))
-                if wall_probe > parameters.time_budget:
-                    o_real = max(wall_probe - n_steps_obj * step_time, 0.0)
-                    n_new = _quantize_steps(steps_for_time_budget(
-                        step_time, parameters.time_budget, overhead=o_real))
-                    if n_new < n_steps_obj:
-                        print(f"  obj {obj_key[0]} realized wall {wall_probe * 1e3:.0f} ms > "
-                              f"budget; overhead {o_real * 1e3:.0f} ms -> rebuild at "
-                              f"{n_new} steps")
-                        n_steps_obj = n_new
-                        run_fn = build(n_steps_obj)
+                # probe runs: the pace the real runner realizes, per-run
+                # costs included, sets the first timed run's count
+                for k in range(1, 4):
+                    wall = _timed(runner(obj_key, n_cal), device, seed + 10**6 + k, *args)[1]
+                    obj["n"] = _paced_steps(obj, realized_step_time(wall, n_cal, overhead),
+                                            budget)
+            print(f"  obj {obj_key[0]} step time {step_time * 1e3:.3f} ms "
+                  f"(+{overhead * 1e3:.1f} ms per run) -> {n_cal} steps per {budget} s budget"
+                  + ("" if fixed_steps else f"; at the probes' pace {obj['n']} steps"))
             if first_steps is None:
-                first_steps, first_step_time = n_steps_obj, step_time
-            calibration[str(obj_key[0])] = dict(n_steps=int(n_steps_obj),
-                                                step_time=float(step_time))
-            runners[obj_key] = run_fn
+                first_steps, first_step_time = obj["n"], step_time
+            calibration[str(obj_key[0])] = dict(n_steps=int(obj["n"]), step_time=float(step_time))
+            objects[obj_key] = obj
 
-        (outs, _), wall = _timed(runners[obj_key], device, seed + i, *args)
+        obj = objects[obj_key]
+        n_run = obj["n"]
+        (outs, _), wall = _timed(runner(obj_key, n_run), device, seed + i, *args)
+        if not fixed_steps:
+            obj["n"] = _paced_steps(obj, realized_step_time(wall, n_run, obj["overhead"]),
+                                    budget)
         ll_all = outs["log_like"].cpu().numpy()  # [steps, chains]
         if is_mcmc(sampler_name):
             # the best sample over the whole chain
@@ -246,13 +273,13 @@ def scene_inference(config, bop_dir, parameters, device="cuda"):
             gt_id=int(row["gt_id"]), obj_id=int(row["obj_id"]),
             t=outs["t"][step_i, chain_i].cpu().numpy(),
             q=outs["r"][step_i, chain_i].cpu().numpy(),
-            score=float(ll_all[step_i, chain_i]), time=wall,
+            score=float(ll_all[step_i, chain_i]), time=wall, n_steps=int(n_run),
             gt_t=np.asarray(row["gt_t"]), gt_R=np.asarray(row["gt_R"]),
             cam_K=np.asarray(row["cam_K"]), depth_scale=float(row["depth_scale"]),
             visib_fract=float(row.get("visib_fract", 1.0)),
         ))
         print(f"  scene {row['scene_id']} img {row['img_id']} obj {row['obj_id']}: "
-              f"{wall:.3f}s score {rows[-1]['score']:.1f}")
+              f"{wall:.3f}s {n_run} steps score {rows[-1]['score']:.1f}")
     return {"result_rows": rows, "n_steps": first_steps, "step_time": first_step_time,
             "calibration": calibration}
 
@@ -396,17 +423,17 @@ def scene_recalls(errors):
 
 
 def run_config(name, config, parameters, bop_dir, device, signature=None, cache=None,
-               data_root="data"):
+               data_root="data", fixed_steps=False):
     """``scene_inference`` and ``evaluate_scene`` of one config, each through
     ``produce_or_load``: the estimates under <data_root>/exp_raw/<name>_cuda,
-    the errors under <data_root>/exp_pro/<name>_cuda/errors. Returns
-    (result, errors)."""
+    the errors under <data_root>/exp_pro/<name>_cuda/errors. ``fixed_steps``:
+    every chain runs ``parameters.n_steps`` steps. Returns (result, errors)."""
     from bayesianposeestimation.jl_tpu_torch.utils.artifacts import produce_or_load, savename
 
     root = Path(data_root)
     print(f"config: {config}")
     result, _ = produce_or_load(
-        lambda c: scene_inference(c, bop_dir, parameters, device),
+        lambda c: scene_inference(c, bop_dir, parameters, device, fixed_steps),
         config, root / "exp_raw" / f"{name}_cuda", filename=savename(config),
         signature=signature)
     t0 = time.perf_counter()
@@ -415,10 +442,12 @@ def run_config(name, config, parameters, bop_dir, device, signature=None, cache=
         config, root / "exp_pro" / f"{name}_cuda" / "errors", filename=savename(config),
         signature=signature)
     walls = [float(r["time"]) for r in result["result_rows"]]
+    fixed_steps = fixed_steps or config.get("mode") == "steps"
     print(f"  evaluation {time.perf_counter() - t0:.2f} s; {int(result['n_steps'])} steps "
           f"per run of the first object ({float(result['step_time']) * 1e3:.4f} ms per step); "
-          f"wall per pose mean {np.mean(walls):.4f} s, max {np.max(walls):.4f} s (budget "
-          f"{parameters.time_budget} s)")
+          f"wall per pose mean {np.mean(walls):.4f} s, max {np.max(walls):.4f} s ("
+          + (f"{parameters.n_steps} steps each)" if fixed_steps else
+             f"budget {parameters.time_budget} s)"))
     return result, errors
 
 
@@ -433,10 +462,11 @@ def write_table(name, filename, rows, data_root="data"):
     return out_dir / filename
 
 
-def sweep_main(script, args, name):
+def sweep_main(script, args, name, table_name=None):
     """An experiment script's sweep: each of ``script.configs(args)`` through
     ``script.run``, then ``script.table`` of the results written as
-    <name>_cuda/<script.TABLE>; rows over their budget are flagged."""
+    <name>_cuda/<table_name> (default ``script.TABLE``); rows over their
+    budget are flagged."""
     from bayesianposeestimation.jl_tpu_torch.devices import resolve_device
 
     card_line(resolve_device(args.device))
@@ -446,7 +476,7 @@ def sweep_main(script, args, name):
     for r in rows:
         if not r.get("budget_ok", True):
             print(f"  WARN over budget: {r}")
-    return write_table(name, script.TABLE, rows)
+    return write_table(name, table_name or script.TABLE, rows)
 
 
 def parse_args(argv=None):

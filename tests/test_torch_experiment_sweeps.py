@@ -12,6 +12,8 @@ errors and tables under data/exp_pro/).
 * Table parity: a script's table code fed the JAX package's own estimates
   and errors reproduces the checked-in CSV: every shared column equal
   (recalls, counts, Wilson intervals, times, ``budget_ok``).
+* The steri script makes a missing data set with the port's generator
+  before its sweep.
 * Evaluation parity on the CPU, one synth-model artifact per experiment:
   ``evaluate_scene`` of the port on the JAX estimates against the JAX errors
   under phase 7a's gates (visibilities equal, ADD-S within 1e-5 relative,
@@ -198,11 +200,32 @@ def test_reevaluated_errors_are_the_jax_package_today():
     assert np.abs(stale["vsd"] - ref["vsd"]).max() > VSD_ABS_TOL
 
 
-def test_steri_script_refuses_a_missing_data_set(tmp_path, capsys):
-    import torch_smc_benchmark_steri
+def test_steri_script_generates_a_missing_data_set(tmp_path, monkeypatch):
+    """Where --bop-dir lacks synth_steri/val, the script runs the port's
+    generator into it at the JAX script's seed (a process of its own, on
+    --device), then the sweep on what it made; where the set is there, the
+    sweep alone."""
+    import torch_smc_benchmark as bench
+    import torch_smc_benchmark_steri as steri
 
-    assert torch_smc_benchmark_steri.main(["--bop-dir", str(tmp_path), "--device", "cpu"]) == 1
-    assert "synth_steri" in capsys.readouterr().err
+    sweeps = []
+    monkeypatch.setattr(bench, "main", lambda argv, dataset, name: sweeps.append(
+        (argv, dataset, name)))
+    argv = ["--bop-dir", str(tmp_path), "--device", "cpu", "--budgets", "0.25"]
+    assert steri.main(argv) == 0
+    scene = tmp_path / "synth_steri/val/000001"
+    assert sorted(p.name for p in scene.iterdir()) == [
+        "depth", "mask_visib", "scene_camera.json", "scene_gt.json", "scene_gt_info.json"]
+    assert len(list((scene / "depth").glob("*.png"))) == 8
+    assert (tmp_path / "synth_steri/models/models_info.json").is_file()
+    assert sweeps == [(argv, "synth_steri", "smc_benchmark_steri")]
+    cmd = steri.generator_argv(steri.parse_args(argv))
+    assert cmd[1].endswith("scripts/torch_make_synthetic_bop.py")
+    assert cmd[2:] == ["--dataset", "synth_steri", "--seed", "7", "--root", str(tmp_path),
+                       "--device", "cpu"]
+    # the set is there now: no second generation
+    monkeypatch.setattr(steri.subprocess, "run", lambda *a, **kw: pytest.fail("generated"))
+    assert steri.main(argv) == 0 and len(sweeps) == 2
 
 
 @pytest.mark.parametrize("script_name", sorted({d for d, _, _ in SWEEP_EXPERIMENTS.values()}))

@@ -12,6 +12,9 @@ plain version of the depth-only kernel).
   (``chip_smoke.compare_generated_scene``, which phase 15d applies on the
   card). Without injection the rotations are unit quaternions and the rest
   is the same.
+* The steri script's generator arguments (--dataset synth_steri --seed 7)
+  with data/bop/synth_steri/val/000001's rotations injected remake that
+  scene under the same gates.
 * The hard profile on one image: the rear instance's visible fraction is the
   one nearest the target among the 16 lateral offsets the script tries, and
   each of the 17 solo renders lies inside its 160x160 window.
@@ -114,6 +117,25 @@ def test_easy_profile_without_injection(tmp_path, easy_scene):
     np.testing.assert_allclose(np.linalg.norm(qs, axis=1), 1.0, atol=1e-6)
     again = gen.quaternion_source(0)
     np.testing.assert_array_equal(again(), qs[0])
+
+
+def test_steri_arguments_remake_synth_steri_val_scene_1(tmp_path):
+    """The arguments scripts/torch_smc_benchmark_steri.py runs the generator
+    with (--dataset synth_steri --seed 7), the checked-in rotations
+    injected, remake data/bop/synth_steri/val/000001 under the same gates."""
+    import torch_smc_benchmark_steri as steri
+
+    ref = BOP / "synth_steri/val/000001"
+    argv = steri.generator_argv(steri.parse_args(["--bop-dir", str(tmp_path), "--device",
+                                                  "cpu"]))[2:]
+    _, out = _generate(tmp_path, argv, gt_quaternions(ref))
+    assert out["split_dir"] == tmp_path / "synth_steri/val"
+    bad, stats = compare_generated_scene(out["split_dir"] / "000001", ref, range(8))
+    assert not bad, (bad, stats)
+    assert stats["min_iou"] >= 0.98 and stats["visib"] <= 0.01
+    assert stats["depth_units"] <= 1
+    assert json.loads((tmp_path / "synth_steri/models/models_info.json").read_text()) == \
+        json.loads((BOP / "synth_steri/models/models_info.json").read_text())
 
 
 def test_hard_profile_picks_the_offset_nearest_the_target(tmp_path, monkeypatch):
