@@ -222,6 +222,13 @@ class SmoothExponential:
         ll = 0.5 * (r * r) - (xs - low) / theta - torch.log(theta) - log_z + log_window
         return torch.where(ok & finite_x, ll, torch.full_like(ll, -torch.inf))
 
+    def sample(self, generator: torch.Generator, shape=()):
+        """A truncated-exponential draw plus N(0, σ²) sensor noise."""
+        base = TruncatedExponential(self.theta, self.low, self.high).sample(generator, shape)
+        noise = torch.randn(base.shape, generator=generator, dtype=base.dtype,
+                            device=generator.device)
+        return base + _on(self.sigma, base.dtype, generator.device) * noise
+
     @property
     def bijector(self):
         return IDENTITY
@@ -262,6 +269,9 @@ class TailUniform:
     def logpdf(self, x):
         val = -torch.log(_as(self.high, x) - _as(self.low, x))
         return val.expand(torch.broadcast_shapes(x.shape, val.shape))
+
+    def sample(self, generator: torch.Generator, shape=()):
+        return Uniform(self.low, self.high).sample(generator, shape)
 
     @property
     def bijector(self):
@@ -328,6 +338,15 @@ class BinaryMixture:
         la = torch.log(wa) - log_norm + self.dist_a.logpdf(x)
         lb = torch.log(wb) - log_norm + self.dist_b.logpdf(x)
         return torch.logaddexp(la, lb)
+
+    def sample(self, generator: torch.Generator, shape=()):
+        """A draw of each component, then component a where a uniform falls
+        below weight_a / (weight_a + weight_b)."""
+        a = self.dist_a.sample(generator, shape)
+        b = self.dist_b.sample(generator, shape)
+        wa, wb = (_on(w, a.dtype, generator.device) for w in (self.weight_a, self.weight_b))
+        u = _uniform(generator, torch.broadcast_shapes(a.shape, b.shape), a.dtype)
+        return torch.where(u < wa / (wa + wb), a, b)
 
     @property
     def bijector(self):

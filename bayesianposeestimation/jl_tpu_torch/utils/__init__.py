@@ -1,0 +1,1 @@
+from . import artifacts, bop, decimate, evaluation, experiment_io, mesh_io, visualization

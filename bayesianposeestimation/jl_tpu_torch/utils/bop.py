@@ -1,9 +1,9 @@
 """BOP benchmark dataset I/O (host code, NumPy only).
 
 Counterpart of ``jl_tpu/utils/bop.py``. Rows are plain dicts in lists (the
-JAX package gathers the same dicts in pandas DataFrames), and PNGs are read
-by ``utils.png`` (the JAX package uses imageio), so this module needs
-neither library.
+JAX package gathers the same dicts in pandas DataFrames), and images are
+read by ``utils.png`` and ``utils.jpeg`` (the JAX package uses imageio), so
+this module needs neither library.
 
 Dataset layout (BOP toolkit convention)::
 
@@ -12,6 +12,7 @@ Dataset layout (BOP toolkit convention)::
         scene_gt.json       # per image: [{obj_id, cam_R_m2c, cam_t_m2c(mm)}]
         scene_gt_info.json  # per image: [{bbox_visib, visib_fract, ...}]
         depth/<im_id:06d>.png        # uint16, value * depth_scale = mm
+        rgb/<im_id:06d>.png|.jpg     # colour, where the set has it (or gray/)
         mask_visib/<im_id:06d>_<gt_id:06d>.png
     <bop_dir>/<dataset>/models/models_info.json   # diameter in mm
     <bop_dir>/<dataset>/models/obj_<obj_id:06d>.ply
@@ -29,20 +30,24 @@ import numpy as np
 
 from ..camera import CvCamera
 from . import mesh_io
+from .jpeg import read_jpeg
 from .png import png_size, read_png
 
 __all__ = [
     "bop_test_or_train",
     "train_targets",
     "test_targets",
+    "gt_targets",
     "gt_rows",
     "gt_info",
     "gt_dataframe",
     "gt_info_dataframe",
     "load_depth_image",
+    "load_color_image",
     "load_mask_image",
     "load_segmentation",
     "load_mesh",
+    "load_mesh_eval",
     "load_ply",
     "model_diameter",
     "depth_resize",
@@ -116,6 +121,7 @@ def test_targets(datasubset_path, scene_id, targets_json="test_targets_bop19.jso
 # the JAX package's DataFrame readers, as lists of the same row dicts
 gt_dataframe = gt_rows
 gt_info_dataframe = gt_info
+gt_targets = train_targets
 
 
 def bop_test_or_train(bop_dir, dataset, testset, scene_id) -> list:
@@ -136,6 +142,22 @@ def load_depth_image(row, width=None, height=None):
     if width is not None:
         depth = depth_resize(depth, width, height)
     return depth
+
+
+def load_color_image(row, width=None, height=None):
+    """The row's image from ``rgb/`` (else ``gray/``), ``.png`` before
+    ``.jpg`` in each: [H, W, 3] (or [H, W] grayscale) as imageio reads it;
+    optionally resized (nearest)."""
+    sdir = _scene_dir(row["datasubset_path"], row["scene_id"])
+    name = f"{int(row['img_id']):06d}"
+    path = next((sdir / sub / f"{name}{ext}" for sub in ("rgb", "gray")
+                 for ext in (".png", ".jpg") if (sdir / sub / f"{name}{ext}").exists()), None)
+    if path is None:
+        raise FileNotFoundError(f"no color image for {row['img_id']}")
+    img = read_png(path) if path.suffix == ".png" else read_jpeg(path)
+    if width is not None:
+        img = depth_resize(img, width, height)
+    return img
 
 
 def load_mask_image(row, width=None, height=None):
@@ -280,6 +302,10 @@ def load_mesh(row_or_path, models_dir=None, decimate_to=None) -> mesh_io.Mesh:
 
         mesh = decimate(mesh, decimate_to)
     return mesh
+
+
+# the mesh the evaluation renders (the JAX package's name)
+load_mesh_eval = load_mesh
 
 
 def model_diameter(row_or_models_info, obj_id=None):

@@ -35,6 +35,9 @@ class Mesh:
     def n_faces(self):
         return self.faces.shape[0]
 
+    def scaled(self, s: float) -> "Mesh":
+        return Mesh(self.vertices * s, self.faces)
+
     def __repr__(self):
         return f"Mesh({self.n_vertices} verts, {self.n_faces} faces)"
 

@@ -164,7 +164,22 @@ Phases (each prints its results; any failure exits non-zero):
      per pose within 1.05 x the budget for mcmc_benchmark's mh_sampler at
      0.5 s and smc_benchmark's 100 particles at 0.05 s on scene 1; (c)
      scripts/torch_smc_benchmark_steri.py into a --bop-dir without the set:
-     the generator makes it, then one 0.25 s config on two images.
+     the generator makes it, then one 0.25 s config on two images;
+  17. the figure scripts and the colour decoders: (a) the panels of
+     scripts/torch_plot_depth_imgs.py (150x150 crop of synth val scene 1's
+     first row), torch_visualize_crop.py (15 / 30 / 60 px, host work) and
+     torch_visualize_full_scene.py (640x480, the model decimated to at most
+     2,000 faces): each script's render_depth launches counted on its own,
+     one per render (back faces drawn), none for the crops, and each
+     kernels-line row carries its script's count; each render bitwise
+     against its plain version over NaN and timed, the panels against the
+     same computation on CPU tensors (z and mu equal, the association o
+     within rtol 1e-5), the generated image within 3 sigma of
+     mu on at least its binomial bound of pixels; (b)
+     torch_simple_logjac.py's three chains at 2,000 steps, each mean within
+     the script's stated bound of theta; (c) the colour PNG and JPEG
+     fixtures of tests/fixtures/color bitwise against their checked-in
+     imageio decodes.
 Every phase prints the seconds since the start when it ends.
 Phase 2 also holds ``render_depth`` and ``render_score(return_mu=True)``
 against their plain versions and each other, and times them at the tracking
@@ -2043,8 +2058,8 @@ def graph_vs_fused(device, failures, smi, sample):
     return worst
 
 
-def graph_depth_row(args, device, smi, label):
-    """Phase 13c: render_depth with back faces drawn at a graph path's
+def graph_depth_row(args, device, smi, label, phase="13c"):
+    """Phase 13c (and 17a): render_depth with back faces drawn at a path's
     shape, on that path's own inputs (verts, faces, cam, t, q): written over
     NaN, bitwise against the plain version, timed. Returns (ok, timing row,
     max |d|)."""
@@ -2069,7 +2084,7 @@ def graph_depth_row(args, device, smi, label):
     dev_ms = device_ms(run, 30)
     b_ms, b_by, ops, pairs = bound_ms(args, epilogue="depth", backface_cull=False)
     verts, faces, cam, t = args[:4]
-    print(f"phase 13c render_depth, {label} ({faces.shape[0]} faces, {cam.width}x{cam.height}, "
+    print(f"phase {phase} render_depth, {label} ({faces.shape[0]} faces, {cam.width}x{cam.height}, "
           f"{t.shape[0]} poses, back faces drawn): written over NaN {fresh}, bitwise equal to "
           f"the plain version {bitwise}; kernel {ms:.4f} ms (CUDA events over 100 calls), "
           f"device {dev_ms} ms (profiler), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
@@ -3305,6 +3320,134 @@ def bop_runs_phase(device, failures, smi):
     return (eval_launches, eval_timing, eval_slices), rows
 
 
+# -- phase 17: the figure scripts and the colour decoders ----------------------------
+
+COLOR_FIXTURES = REPO / "tests/fixtures/color"
+O_TOL = dict(rtol=1e-5, atol=1e-6)  # the association image, card against CPU
+
+
+def figure_panels(scripts, device, failures, smi):
+    """Phase 17a: the panels of scripts/torch_plot_depth_imgs.py,
+    torch_visualize_crop.py and torch_visualize_full_scene.py on synth val
+    scene 1 (the scripts' defaults): each script's render_depth launches
+    counted on its own (one per render, none for the host crops); mu and the
+    full-frame render bitwise against the plain version over NaN (and
+    timed), the panels against the same computation on CPU tensors, gen in
+    distribution. Returns the kernels-line rows."""
+    import numpy as np
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_depth
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+
+    depth_imgs, crop, full = scripts
+    argv = ["--bop-dir", str(BOP_DIR)]
+    d_args, c_args, f_args = (m.parse_args(argv) for m in (depth_imgs, crop, full))
+    launches, out = {}, {}
+    for label, run in (("plot_depth_imgs", lambda: depth_imgs.panels(d_args, device)),
+                       ("visualize_crop", lambda: crop.panels(c_args)),
+                       ("visualize_full_scene", lambda: full.panels(f_args, device))):
+        render_depth.launches = 0
+        out[label] = run()
+        launches[label] = render_depth.launches
+    card, crops, scene = out["plot_depth_imgs"], out["visualize_crop"], out["visualize_full_scene"]
+    expected = {"plot_depth_imgs": 1, "visualize_crop": 0, "visualize_full_scene": 1}
+    print(f"phase 17a panels on {smi}: render_depth launches {launches}, renders {expected} "
+          f"(plot_depth_imgs mu {card['mu'].shape}, visualize_full_scene "
+          f"{scene['render'].shape}, {int((scene['render'] > 0).sum())} object pixels)")
+    if launches != expected:
+        failures.append(f"phase 17a: render_depth launches {launches} for renders {expected}")
+    cpu = depth_imgs.panels(d_args, "cpu")
+    sigma = Parameters().pixel_sigma
+    k, n, least = depth_imgs.within_3_sigma(card["gen"], card["mu"], sigma)
+    checks = {
+        "z equal": bool(np.array_equal(card["z"], cpu["z"])),
+        "mu equal to the CPU's": bool(np.array_equal(card["mu"], cpu["mu"])),
+        "o close": bool(np.allclose(card["o"], cpu["o"], **O_TOL)),
+        "gen zero off the object": bool((card["gen"][card["mu"] == 0] == 0).all()),
+        "gen within 3 sigma": k >= least,
+        "crops": all(c.shape == (int(name.split("_")[1]),) * 2 and (c > 0).any()
+                     for name, c in crops.items()),
+        "full-frame depth": scene["depth"].shape == scene["render"].shape == (480, 640),
+    }
+    print(f"phase 17a against the CPU: o max |d| "
+          f"{float(np.abs(card['o'] - cpu['o']).max()):.2e}; gen: {k} of {n} object pixels "
+          f"within 3 sigma ({least:.1f} needed); crops {[c.shape for c in crops.values()]}; "
+          f"{json.dumps(checks)}")
+    failures.extend(f"phase 17a: {name}" for name, ok in checks.items() if not ok)
+    rows = []
+    for label, script, args in (("plot_depth_imgs", depth_imgs, d_args),
+                                ("visualize_full_scene", full, f_args)):
+        inputs = script.render_inputs(args, device)[0]
+        ok, row, err = graph_depth_row(inputs, device, smi, f"{label}'s gt pose", phase="17a")
+        if not ok:
+            failures.append(f"phase 17a render_depth at {label}'s shape: vs plain, or no "
+                            f"device time")
+        rows.append((f"render_depth {inputs[1].shape[0]} faces {inputs[2].width}x"
+                     f"{inputs[2].height} 1 pose ({label})", launches[label],
+                     f"phase 17a {label} panels", err, row))
+    torch.cuda.synchronize()
+    return rows
+
+
+def logjac_on_card(logjac, device, failures):
+    """Phase 17b: scripts/torch_simple_logjac.py's three chains on the card
+    at CHECK_STEPS steps, each mean within its stated bound of theta."""
+    z = logjac.chains(logjac.parse_args(["--n-steps", str(logjac.CHECK_STEPS),
+                                         "--device", device]))
+    for label, bound in logjac.MEAN_REL_BOUND.items():
+        rel = abs(float(z[label].mean()) - logjac.THETA) / logjac.THETA
+        print(f"phase 17b {label}: mean {z[label].mean():.4f}, rel err {rel:.4f} "
+              f"(bound {bound})")
+        if not rel <= bound:
+            failures.append(f"phase 17b simple_logjac {label}: rel err {rel:.3f} > {bound}")
+
+
+def color_fixtures(failures):
+    """Phase 17c: the colour fixtures decoded by utils.png / utils.jpeg
+    against their checked-in imageio decodes, bitwise."""
+    import numpy as np
+
+    from bayesianposeestimation.jl_tpu_torch.utils.jpeg import read_jpeg
+    from bayesianposeestimation.jl_tpu_torch.utils.png import read_png
+
+    for name in ("rgb.png", "rgba.png", "ycc420.jpg"):
+        path = COLOR_FIXTURES / name
+        ours = read_png(path) if path.suffix == ".png" else read_jpeg(path)
+        ref = np.load(COLOR_FIXTURES / f"{path.stem}.npy")
+        if ours.shape != ref.shape or ours.dtype != ref.dtype:
+            print(f"phase 17c {name}: {ours.shape} {ours.dtype}, imageio {ref.shape} {ref.dtype}")
+            failures.append(f"phase 17c {name}: shape or dtype")
+            continue
+        d = np.abs(ours.astype(int) - ref.astype(int))
+        ok = bool(np.array_equal(ours, ref))
+        print(f"phase 17c {name}: {ours.shape} {ours.dtype} against imageio's decode: "
+              f"max |d| {int(d.max())}, mean {float(d.mean()):.4f}; bitwise equal {ok}")
+        if not ok:
+            failures.append(f"phase 17c {name}")
+
+
+def figures_phase(device, failures, smi):
+    """Phase 17: the figure scripts and the colour decoders. Returns 17a's
+    kernels-line rows."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_plot_depth_imgs
+    import torch_simple_logjac
+    import torch_visualize_crop
+    import torch_visualize_full_scene
+
+    t0 = time.perf_counter()
+    rows = figure_panels((torch_plot_depth_imgs, torch_visualize_crop,
+                          torch_visualize_full_scene), device, failures, smi)
+    print(f"phase 17a took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    logjac_on_card(torch_simple_logjac, device, failures)
+    print(f"phase 17b took {time.perf_counter() - t1:.1f} s")
+    color_fixtures(failures)
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "render_score.cu").is_file():
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -3592,6 +3735,10 @@ def main() -> int:
     (hard_eval_launches, hard_timing, hard_slices), cut_rows = bop_runs_phase(dev, failures, smi)
     phase_done(16)
 
+    # -- phase 17: the figure scripts and the colour decoders ------------------------
+    figure_rows = figures_phase(dev, failures, smi)
+    phase_done(17)
+
     if failures:
         print(f"chip_smoke FAILED: {failures}", file=sys.stderr)
         return 1
@@ -3698,6 +3845,8 @@ def main() -> int:
                              f"30x30 100 poses", 937, n_launch,
                              f"phase 16b smc_mh on the {label}'s split, scene 1, two images",
                              res["max_abs_err"], row))
+    for name, n_launch, path, err, row in figure_rows:
+        entries.append(entry(name, 930, n_launch, path, err, row))
     for e in entries:
         if e["launches"] <= 0:
             print(f"chip_smoke FAILED: {e['name']} was not launched on its path",

@@ -122,9 +122,10 @@ def test_png_decoder_every_filter(tmp_path, dtype, filt):
         np.testing.assert_array_equal(out, np.asarray(iio.imread(p)))
 
 
-@pytest.mark.parametrize("bad", [dict(colour=2), dict(interlace=1), dict(depth=4)])
+@pytest.mark.parametrize("bad", [dict(colour=2, depth=4), dict(interlace=1), dict(depth=4)])
 def test_png_decoder_raises_on_unsupported_formats(tmp_path, bad):
-    """Colour, interlaced and sub-byte images raise instead of misreading."""
+    """Colour at a bit depth the format does not allow, interlaced and
+    sub-byte grayscale images raise instead of misreading."""
     img = np.zeros((4, 6 if bad.get("colour") != 2 else 18), np.uint8)
     p = tmp_path / "bad.png"
     _write_png(p, img, [0], **bad)

@@ -13,6 +13,7 @@ demo's shape.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -31,12 +32,13 @@ from bayesianposeestimation.jl_tpu.render import render_context as j_render_cont
 from bayesianposeestimation.jl_tpu.render import render_crop_fn as j_render_crop_fn
 from bayesianposeestimation.jl_tpu.utils import mesh_io
 from bayesianposeestimation.jl_tpu_torch import convert
-from bayesianposeestimation.jl_tpu_torch import render as TR
 from bayesianposeestimation.jl_tpu_torch.models import experiment_models as TEM
 from bayesianposeestimation.jl_tpu_torch.models import fused as TF
 from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
 from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_depth as t_render_depth
 
+# the module: the package's name render is the function render.render
+TR = importlib.import_module("bayesianposeestimation.jl_tpu_torch.render")
 TOL = dict(rtol=1e-3, atol=0.05)
 # graph factory -> the fused variant that computes the same densities
 FACTORIES = {"simple_posterior": "simple", "association_posterior": "association",

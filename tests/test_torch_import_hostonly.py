@@ -4,7 +4,9 @@ The counterpart of ``tests/test_import_hostonly.py``: in a fresh process,
 importing every module of ``jl_tpu_torch`` and every
 ``scripts/torch_*.py``, ``bench_torch.py`` and ``chip_smoke.py`` leaves
 ``torch.cuda.is_initialized()`` false and imports neither JAX nor the JAX
-package. A kernel is built and launched only inside the call that needs it.
+package nor matplotlib (the card's machine has none: figures are drawn
+elsewhere). A kernel is built and launched only inside the call that needs
+it.
 """
 
 import subprocess
@@ -26,7 +28,8 @@ scripts = sorted(p.stem for p in Path("scripts").glob("torch_*.py"))
 for name in scripts + ["bench_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "bayesianposeestimation.jl_tpu.")))
+             if m in ("jax", "matplotlib")
+             or m.startswith(("jax.", "matplotlib.", "bayesianposeestimation.jl_tpu.")))
 print(len(names), len(scripts), torch.cuda.is_initialized(), bad)
 """
 
