@@ -154,6 +154,7 @@
 namespace {
 
 constexpr int kMaxThreads = 512;
+constexpr int kMaxDevices = 64;  // devices whose shared-memory limit is kept
 constexpr int kFormWords = 13;  // nine forms and the box c0, c1, r0, r1
 constexpr int kBigBox = 128;    // boxes above this many pixels: whole block
 constexpr int kAccumulators = 32;  // rows of 16 pixel-sum accumulators
@@ -183,6 +184,18 @@ enum Epilogue : int {
 struct Camera {
   float fx, fy, s, cx_off, cy_off, near, far;
 };
+
+// The camera of a launch: the launch arguments, or, where `cam_row` is not
+// null, the seven floats of a device row in the same order (ops/cuda_raster.py
+// camera_row), read by every thread at the start of its block (one broadcast
+// from the cache), as the Pallas kernels read theirs from `cam_ref`.
+__device__ __forceinline__ Camera camera_of(const Camera& cam,
+                                            const float* __restrict__ cam_row) {
+  if (cam_row == nullptr) return cam;
+  return Camera{__ldg(cam_row + 0), __ldg(cam_row + 1), __ldg(cam_row + 2),
+                __ldg(cam_row + 3), __ldg(cam_row + 4), __ldg(cam_row + 5),
+                __ldg(cam_row + 6)};
+}
 
 struct ScoreParams {
   float min_depth, max_depth, theta, pixel_sigma, assoc_sigma;
@@ -437,7 +450,8 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
                     const float* __restrict__ t, const float* __restrict__ q,
                     const float* __restrict__ z_img,
                     const float* __restrict__ prior_img, int height, int width,
-                    Camera cam, int backface_cull, ScoreParams sp,
+                    Camera cam_arg, const float* __restrict__ cam_row,
+                    int backface_cull, ScoreParams sp,
                     const float* __restrict__ hyper,
                     const float* __restrict__ background, Plan plan,
                     float* __restrict__ ell_out, float* __restrict__ sumo_out,
@@ -450,6 +464,7 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
                 "kSmemStatic must cover the static shared memory");
 
   BPE_PHASE_START
+  const Camera cam = camera_of(cam_arg, cam_row);
   // The depth-only kernel may split a pose's faces over face_slices blocks
   // (block = pose * face_slices + slice, each on a contiguous slice of the
   // faces); each block rasters its slice into its own tile and then merges
@@ -792,7 +807,8 @@ template <int E, bool kMu>
 cudaError_t launch(const float* verts, int n_verts, const int* faces,
                    int n_faces, const float* t, const float* q, int n_poses,
                    const float* z_img, const float* prior_img, int height,
-                   int width, const Camera& cam, int backface_cull,
+                   int width, const Camera& cam, const float* cam_row,
+                   int backface_cull,
                    const ScoreParams& sp, const float* hyper, int threads,
                    const Plan& plan, float* ell, float* sum_o, float* mu,
                    float* background, cudaStream_t stream) {
@@ -818,10 +834,21 @@ cudaError_t launch(const float* verts, int n_verts, const int* faces,
   const size_t smem = sizeof(float) * words;
   if (smem + kSmemStatic > kSmemLimit) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {  // above the default limit of dynamic shared memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        render_score_kernel<E, kMu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    // raised once per device to the largest size asked, so that a launch
+    // captured into a CUDA graph after a first eager launch of its plan
+    // calls no attribute function
+    static int raised[kMaxDevices] = {};
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    if ((int)smem > raised[device]) {
+      err = cudaFuncSetAttribute(render_score_kernel<E, kMu>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return err;
+      raised[device] = (int)smem;
+    }
   }
   if (slices > 1) {  // the slices merge into a zeroed image
     const cudaError_t err =
@@ -830,7 +857,7 @@ cudaError_t launch(const float* verts, int n_verts, const int* faces,
   }
   render_score_kernel<E, kMu><<<n_poses * slices, threads, smem, stream>>>(
       verts, n_verts, faces, n_faces, t, q, z_img, prior_img, height, width,
-      cam, backface_cull, sp, hyper, background, plan, ell, sum_o, mu);
+      cam, cam_row, backface_cull, sp, hyper, background, plan, ell, sum_o, mu);
   if (slices == 1) return cudaGetLastError();
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -845,8 +872,9 @@ cudaError_t launch(const float* verts, int n_verts, const int* faces,
 // Plain C entry point (bound with ctypes). Launches on `stream`, allocates
 // nothing, does not synchronise; returns cudaGetLastError() after the launch
 // (0 on success), or cudaErrorInvalidValue for an epilogue or a plan it does
-// not have. `hyper`: null, or a device pointer to [pixel_sigma,
-// association_sigma]. `mu`: null, or a device pointer to an [n_poses,
+// not have. `cam_row`: null, or a device pointer to the seven camera floats
+// (fx, fy, s, cx_off, cy_off, near, far), read in place of those arguments.
+// `hyper`: null, or a device pointer to [pixel_sigma, association_sigma]. `mu`: null, or a device pointer to an [n_poses,
 // height * width] image that receives the rendered depth (0 = background).
 // `background`: null, or device scratch of 2 * height * width floats (the
 // score of uncovered pixels, written by a first small kernel and read by the
@@ -857,8 +885,8 @@ extern "C" int bpe_render_score(
     const float* verts, int n_verts, const int* faces, int n_faces,
     const float* t, const float* q, int n_poses, const float* z_img,
     const float* prior_img, int height, int width, float fx, float fy, float s,
-    float cx_off, float cy_off, float near, float far, int backface_cull,
-    int epilogue, float min_depth, float max_depth, float pixel_theta,
+    float cx_off, float cy_off, float near, float far, const float* cam_row,
+    int backface_cull, int epilogue, float min_depth, float max_depth, float pixel_theta,
     float pixel_sigma, float association_sigma, const float* hyper, float* ell,
     float* sum_o, float* mu, float* background, int threads, int cache_verts,
     int face_cap, int band_rows, int band_cols, void* stream) {
@@ -870,8 +898,8 @@ extern "C" int bpe_render_score(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BPE_ARGS                                                            \
   verts, n_verts, faces, n_faces, t, q, n_poses, z_img, prior_img, height, \
-      width, cam, backface_cull, sp, hyper, threads, plan, ell, sum_o, mu,   \
-      background, st
+      width, cam, cam_row, backface_cull, sp, hyper, threads, plan, ell,     \
+      sum_o, mu, background, st
 #define BPE_LAUNCH(E) \
   (int)(mu != nullptr ? launch<E, true>(BPE_ARGS) : launch<E, false>(BPE_ARGS))
   switch (epilogue) {
@@ -895,7 +923,7 @@ extern "C" int bpe_render_depth(
     const float* verts, int n_verts, const int* faces, int n_faces,
     const float* t, const float* q, int n_poses, int height, int width,
     float fx, float fy, float s, float cx_off, float cy_off, float near,
-    float far, int backface_cull, float* mu, int threads, int cache_verts,
+    float far, const float* cam_row, int backface_cull, float* mu, int threads, int cache_verts,
     int face_cap, int band_rows, int band_cols, int face_slices, void* stream) {
   if (n_poses <= 0) return 0;
   if (mu == nullptr) return (int)cudaErrorInvalidValue;
@@ -904,8 +932,8 @@ extern "C" int bpe_render_depth(
   const Plan plan{cache_verts, face_cap, band_rows, band_cols, face_slices};
   return (int)launch<kDepthOnly, true>(
       verts, n_verts, faces, n_faces, t, q, n_poses, nullptr, nullptr, height,
-      width, cam, backface_cull, sp, nullptr, threads, plan, nullptr, nullptr,
-      mu, nullptr, static_cast<cudaStream_t>(stream));
+      width, cam, cam_row, backface_cull, sp, nullptr, threads, plan, nullptr,
+      nullptr, mu, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 #ifdef BPE_PHASE_CLOCKS

@@ -27,6 +27,7 @@ from ..camera import reproject_3d
 from ..devices import resolve_device
 from ..distributions import Normal, QuaternionUniform
 from ..graph import BroadcastedNode, DeterministicNode, ModifierNode, device_of
+from ..parameters import sigma_row
 from ..posterior import PosteriorModel
 from ..render import render_context, render_fn, render_scene
 from .pixel import (
@@ -54,7 +55,7 @@ def point_prior(params, experiment, device="cuda"):
     """t ~ Normal(prior_t, σ_t), r ~ QuaternionUniform, μ = render(t, r) on
     ``device``. Returns the μ node."""
     dev = resolve_device(device)
-    sigma_t = torch.as_tensor(np.asarray(params.sigma_t, np.float32), device=dev)
+    sigma_t = sigma_row(params.sigma_t, dev)
     t = BroadcastedNode("t", Normal, experiment.prior_t.to(dev), sigma_t)
     r = BroadcastedNode("r", QuaternionUniform)
     mu_fn = partial(render_fn, render_context(params), render_scene(experiment.scene, dev))

@@ -17,9 +17,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
-import torch
-
 from ..distributions import Normal, QuaternionUniform
 from ..graph import BroadcastedNode, sequentialize
 from ..proposals import independent_proposal, symmetric_proposal
@@ -33,22 +30,19 @@ from ..samplers import (
     MultipleTry,
     SequentialMonteCarlo,
 )
+from ..parameters import sigma_row
 from ..tempering import LinearSchedule
 
 __all__ = ["mh_sampler", "mh_local_sampler", "mtm_sampler", "mtm_local_sampler",
            "smc_forward", "smc_bootstrap", "smc_mh"]
 
 
-def _sigma(values, posterior):
-    return torch.as_tensor(np.asarray(values, np.float32), device=posterior.device)
-
-
 def _sym_proposals(params, posterior):
     """t and r symmetric random-walk proposals (tangent space for r)."""
     t_sym = sequentialize(BroadcastedNode("t", Normal, 0.0,
-                                          _sigma(params.proposal_sigma_t, posterior)))
+                                          sigma_row(params.proposal_sigma_t, posterior.device)))
     r_sym = sequentialize(BroadcastedNode("r", Normal, 0.0,
-                                          _sigma(params.proposal_sigma_r, posterior)))
+                                          sigma_row(params.proposal_sigma_r, posterior.device)))
     return symmetric_proposal(t_sym, posterior), symmetric_proposal(r_sym, posterior)
 
 
@@ -106,7 +100,7 @@ def _smc(params, kernel):
 
 
 def _adaptive_sigmas(params, proposal, posterior):
-    return {name: _sigma(params.proposal_sigma_t, posterior) for name in proposal.names}
+    return {name: sigma_row(params.proposal_sigma_t, posterior.device) for name in proposal.names}
 
 
 def smc_forward(params, posterior):

@@ -7,37 +7,44 @@ proposals (``Dynamics``, ``JointDynamics``), ``resize_experiment`` /
 ``crop_experiment``, and the two filters — ``coordinate_pf`` (block-wise: a
 bootstrap step on t, then one on r) and ``bootstrap_pf`` (joint dynamics).
 
-JAX scans the frames inside one compiled program; here the frame loop is
-eager and makes no host synchronisation per frame: the stream lies on the
-device, resampling is ``torch.where``-selected and the outputs are stacked
-once at the end. A fused posterior (a factory from ``fused_pf_posterior``,
-marked ``fused``) is built once and its observation swapped per frame
-(``FusedPosterior.with_observation``). Any other factory is called as
-``posterior_fn(params, experiment, prior)`` with ``pf_prior``, as in the JAX
-package: the prior (mesh and sigmas on the device) is built once and the
-posterior rebuilt per frame on that frame's experiment, which is host Python
-only, so an association node scores every frame against its own image. The
-proposals take their normals as arguments (``apply``), so a test can hand
-both packages the same draws.
+JAX scans the frames inside one compiled program; here a filter is a
+``capture.ChainRunner`` whose frame step is captured once as a CUDA graph
+(one per filter kind, cached as the JAX package caches its jitted runner:
+per posterior factory, parameters, kind, collected variables, stream shape
+and experiment) and replayed per frame, after the frame is copied, device
+to device, into the observation buffer the step reads. The stream lies on
+the device, resampling is ``torch.where``-selected and nothing is read on
+the host per frame. A fused posterior (a factory from
+``fused_pf_posterior``, marked ``fused``) is built once and each frame
+written into its observation (``FusedPosterior.with_observation``). Any
+other factory is called as ``posterior_fn(params, experiment, prior)`` with
+``pf_prior``, as in the JAX package: the prior (mesh and sigmas on the
+device) is built once and the posterior rebuilt inside every frame step on
+that frame's experiment, so an association node scores every frame against
+its own image. On the CPU the same step runs eagerly; ``captured=False``
+runs the eager frame loop. The proposals take their normals as arguments
+(``apply``), so a test can hand both packages the same draws.
 """
 
 from __future__ import annotations
 
+import collections
 import math
+import weakref
 from dataclasses import dataclass
 from functools import partial
 from typing import Any
 
-import numpy as np
 import torch
 
 from .. import quaternions as quat
 from ..camera import crop_camera
+from ..capture import ChainRunner
 from ..convert import stream_from_numpy
 from ..devices import resolve_device
 from ..distributions import Normal, QuaternionNormal
 from ..graph import BroadcastedNode, DeterministicNode
-from ..parameters import Experiment
+from ..parameters import Experiment, sigma_row
 from ..render import render_context, render_fn, render_scene
 from ..rngs import Rngs
 from ..samplers import (
@@ -63,10 +70,6 @@ __all__ = [
 ]
 
 
-def _sigma(values, device):
-    return torch.as_tensor(np.asarray(values, np.float32), device=device)
-
-
 def fused_pf_posterior(variant: str = "association"):
     """Posterior factory for the trackers: the fused render+score likelihood
     with the velocity-state prior (``pf_prior_nodes``). The factory is called
@@ -86,8 +89,8 @@ def pf_prior_nodes(params, experiment):
     r ~ QuaternionNormal(prior_r, proposal σ_r[0]). There is no render node:
     the fused likelihood renders inside its kernel."""
     dev = experiment.prior_t.device
-    sigma_t = _sigma(params.proposal_sigma_t, dev)
-    sigma_r = _sigma(params.proposal_sigma_r, dev)
+    sigma_t = sigma_row(params.proposal_sigma_t, dev)
+    sigma_r = sigma_row(params.proposal_sigma_r, dev)
     zeros = torch.zeros(3, dtype=torch.float32, device=dev)
     return {
         "t_dot": BroadcastedNode("t_dot", Normal, zeros, sigma_t),
@@ -217,8 +220,8 @@ def crop_experiment(experiment: Experiment, depth_img, t, diameter, width, heigh
 
 
 def _pf_samplers(params, kind, device):
-    sigma_t = _sigma(params.proposal_sigma_t, device)
-    sigma_r = _sigma(params.proposal_sigma_r, device)
+    sigma_t = sigma_row(params.proposal_sigma_t, device)
+    sigma_r = sigma_row(params.proposal_sigma_r, device)
 
     def smc(kernel):
         return SequentialMonteCarlo(kernel, ConstantSchedule(), params.n_particles,
@@ -232,7 +235,46 @@ def _pf_samplers(params, kind, device):
     return smc(BootstrapKernel(JointDynamics(sigma_t, sigma_r, params.velocity_decay)))
 
 
-def _run_pf(seed, posterior_fn, params, experiment, depth_imgs, kind, collect_vars, device):
+# the captured filters, most recently used last: (factory, params, kind,
+# collected variables, stream shape, device, experiment id) -> (experiment
+# reference, runner, frame feed)
+_PF_RUNNERS = collections.OrderedDict()
+_PF_RUNNERS_KEPT = 4
+
+
+def _pf_runner(posterior_fn, params, experiment, frame0, kind, collect_vars, dev):
+    """The cached captured filter of one configuration and experiment, and
+    the function that writes a frame into the observation its step reads."""
+    key = (posterior_fn, params, kind, tuple(collect_vars), tuple(frame0.shape), dev,
+           id(experiment))
+    hit = _PF_RUNNERS.get(key)
+    if hit is not None and hit[0]() is experiment:
+        _PF_RUNNERS.move_to_end(key)
+        return hit[1], hit[2]
+    exp = experiment.to(dev)  # moved once: a frame step copies nothing from the host
+    if getattr(posterior_fn, "fused", False):
+        post = posterior_fn(params, exp.with_depth_image(frame0), device=dev)
+        feed = post.with_observation
+
+        def build():
+            return post
+    else:
+        prior = pf_prior(params, exp, dev)
+        obs = torch.empty_like(frame0)
+        feed = obs.copy_
+
+        def build():
+            return posterior_fn(params, exp.with_depth_image(obs), prior)
+    runner = ChainRunner(_pf_samplers(params, kind, dev), build, dev, params.n_particles,
+                         collect_vars)
+    _PF_RUNNERS[key] = (weakref.ref(experiment), runner, feed)
+    while len(_PF_RUNNERS) > _PF_RUNNERS_KEPT:
+        _PF_RUNNERS.popitem(last=False)
+    return runner, feed
+
+
+def _run_pf(seed, posterior_fn, params, experiment, depth_imgs, kind, collect_vars, device,
+            captured=True):
     """Init on frame 0, then one sampler step per remaining frame.
 
     ``depth_imgs``: [F, H, W] at render size — a float32 tensor on ``device``
@@ -244,6 +286,12 @@ def _run_pf(seed, posterior_fn, params, experiment, depth_imgs, kind, collect_va
     if depth_imgs.device.type != dev.type:
         raise ValueError(f"depth_imgs is on {depth_imgs.device}, filter asked for {dev}")
     depth_imgs = depth_imgs.to(torch.float32).contiguous()
+    if captured:
+        runner, feed = _pf_runner(posterior_fn, params, experiment, depth_imgs[0], kind,
+                                  collect_vars, dev)
+        feed(depth_imgs[0])
+        return runner.run(seed, depth_imgs.shape[0],
+                          before_step=lambda i: feed(depth_imgs[i + 1]))
     sampler = _pf_samplers(params, kind, dev)
     rngs = Rngs.from_seed(seed, dev)
     if getattr(posterior_fn, "fused", False):
@@ -266,20 +314,21 @@ def _run_pf(seed, posterior_fn, params, experiment, depth_imgs, kind, collect_va
 
 
 def coordinate_pf(seed, posterior_fn, params, experiment, depth_imgs,
-                  collect_vars=("t", "r"), device="cuda"):
+                  collect_vars=("t", "r"), device="cuda", captured=True):
     """Block-wise (t, then r) bootstrap particle filter over a depth stream:
     two likelihood evaluations per frame. ``posterior_fn``: a
     ``fused_pf_posterior`` factory, or a graph factory of
     ``models.experiment_models`` (given ``pf_prior``). Returns (outs, final)
     with ``outs`` stacked over the F-1 tracked frames as
-    ``collect_variables`` gives them."""
+    ``collect_variables`` gives them. ``captured=False``: the eager frame
+    loop."""
     return _run_pf(seed, posterior_fn, params, experiment, depth_imgs, "coordinate",
-                   collect_vars, device)
+                   collect_vars, device, captured)
 
 
 def bootstrap_pf(seed, posterior_fn, params, experiment, depth_imgs,
-                 collect_vars=("t", "r"), device="cuda"):
+                 collect_vars=("t", "r"), device="cuda", captured=True):
     """Joint-dynamics bootstrap particle filter over a depth stream: one
     likelihood evaluation per frame. Returns (outs, final) as ``coordinate_pf``."""
     return _run_pf(seed, posterior_fn, params, experiment, depth_imgs, "bootstrap",
-                   collect_vars, device)
+                   collect_vars, device, captured)

@@ -20,6 +20,15 @@ the kernel is launched with) and ``render_mu_binned_reference`` (the depth
 kernel's algorithm in plain PyTorch, bitwise equal to
 ``render_mu_reference``, which tests every pixel).
 
+The camera reaches a launch as seven fp32 scalars (``camera_row``): as
+launch arguments by default, or, with ``cam_row``, from a device row the
+kernel reads at run time (the counterpart of the Pallas kernels' ``cam_ref``),
+so a captured chain serves every crop camera of one image size. The plain
+versions take the same row.
+
+A launch is counted through ``capture.count``, so the launches a captured
+CUDA graph makes are counted again on every replay.
+
 The kernel library is compiled with ``nvcc`` from the package's own source at
 the first CUDA launch, into ``_build/`` beside the package, and loaded with
 ``ctypes`` (plain C entry point, no PyTorch headers).
@@ -41,13 +50,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import capture
 from ..camera import CvCamera
 from ..devices import check_on_device, resolve_device
 
 __all__ = ["render_score", "render_score_reference", "render_depth",
-           "render_depth_reference", "triangle_forms", "triangle_boxes", "inside_test",
-           "launch_plan", "render_mu_reference", "render_mu_binned_reference",
-           "build_library", "mesh_tensors", "check_faces", "SCORE_VARIANTS", "EPILOGUES"]
+           "render_depth_reference", "camera_row", "CAMERA_ROW", "triangle_forms",
+           "triangle_boxes", "inside_test", "launch_plan", "render_mu_reference",
+           "render_mu_binned_reference", "build_library", "mesh_tensors", "check_faces",
+           "SCORE_VARIANTS", "EPILOGUES"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCE = _PKG / "csrc" / "render_score.cu"
@@ -122,11 +133,32 @@ def _camera_scalars(cam: CvCamera):
     })
 
 
-def project_vertices(verts, faces, cam: CvCamera, t, q):
+# the camera scalars a launch reads, in the order of a device row
+CAMERA_ROW = ("fx", "fy", "s", "cx_off", "cy_off", "near", "far")
+
+
+def camera_row(cam: CvCamera) -> np.ndarray:
+    """The seven fp32 camera scalars of ``CAMERA_ROW`` that a launch reads,
+    as a host array; a device copy of it is a launch's ``cam_row``."""
+    c = _camera_scalars(cam)
+    return np.array([c[k] for k in CAMERA_ROW], np.float32)
+
+
+def _camera_values(cam: CvCamera, cam_row=None):
+    """The camera scalars as the plain version uses them: ``_camera_scalars``,
+    with the entries of ``cam_row`` (0-dim tensors) in place of the host
+    numbers where a row is given."""
+    c = _camera_scalars(cam)
+    if cam_row is None:
+        return c
+    return {**c, **{k: cam_row[i] for i, k in enumerate(CAMERA_ROW)}}
+
+
+def project_vertices(verts, faces, cam: CvCamera, t, q, cam_row=None):
     """Per (pose, face) and corner j: the pixel coordinates u[j], v[j] in
     grid-centred coordinates (pixel centres at integer offsets from the grid
     centre) and the camera depth z[j], each [N, F]."""
-    c = _camera_scalars(cam)
+    c = _camera_values(cam, cam_row)
     tx, ty, tz = (t[:, k:k + 1] for k in range(3))
     qw, qx, qy, qz = (q[:, k:k + 1] for k in range(4))
     r00 = 1 - 2 * (qy * qy + qz * qz)
@@ -146,7 +178,7 @@ def project_vertices(verts, faces, cam: CvCamera, t, q):
         x = r00 * vx + r01 * vy + r02 * vz + tx
         y = r10 * vx + r11 * vy + r12 * vz + ty
         zz = r20 * vx + r21 * vy + r22 * vz + tz
-        inv = 1.0 / torch.where(zz > c["near"], zz, torch.full_like(zz, c["near"]))
+        inv = 1.0 / torch.where(zz > c["near"], zz, c["near"])
         u.append((c["fx"] * x + c["s"] * y) * inv + c["cx_off"])
         v.append(c["fy"] * y * inv + c["cy_off"])
         z.append(zz)
@@ -165,14 +197,14 @@ def _edges_and_area(u, v):
     return e0, e1, e2, e2[0] * u[2] + e2[1] * v[2] + e2[2]
 
 
-def triangle_forms(verts, faces, cam: CvCamera, t, q, backface_cull=True):
+def triangle_forms(verts, faces, cam: CvCamera, t, q, backface_cull=True, cam_row=None):
     """Per (pose, face): validity [N, F] and the nine forms the raster loop
     reads — edge forms 0 and 1 pre-divided by the signed area
     (A0, B0, C0, A1, B1, C1) and the inverse-depth coefficients
     (IZ2, IZ0 - IZ2, IZ1 - IZ2) — each [N, F]. Culls as build_forms does:
     degenerate, depth outside (near, far), off the viewport, backfacing."""
-    c = _camera_scalars(cam)
-    u, v, z = project_vertices(verts, faces, cam, t, q)
+    c = _camera_values(cam, cam_row)
+    u, v, z = project_vertices(verts, faces, cam, t, q, cam_row)
     (a0, b0, c0), (a1, b1, c1), _, area = _edges_and_area(u, v)
 
     gcx, gcy = c["gcx"], c["gcy"]
@@ -208,11 +240,11 @@ def inside_test(forms, pu, pv):
     return inside, IZ2 + DZ0 * w0 + DZ1 * w1
 
 
-def render_mu_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True):
+def render_mu_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True, cam_row=None):
     """Rendered depth μ [N, H*W] (0 = background) exactly as the kernel's
     raster loop computes it: max over live covering triangles of the
     perspective-correct inverse depth, then its reciprocal."""
-    valid, forms = triangle_forms(verts, faces, cam, t, q, backface_cull)
+    valid, forms = triangle_forms(verts, faces, cam, t, q, backface_cull, cam_row)
     c = _camera_scalars(cam)
     n, n_faces = valid.shape
     n_pix = cam.height * cam.width
@@ -391,23 +423,25 @@ def render_mu_binned_reference(verts, faces, cam: CvCamera, t, q, backface_cull=
                        torch.zeros_like(maxd))
 
 
-def render_depth_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True):
-    """Plain PyTorch version of the depth kernel: μ [N, H, W], 0 = background."""
-    mu = render_mu_reference(verts, faces, cam, t, q, backface_cull)
+def render_depth_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True, cam_row=None):
+    """Plain PyTorch version of the depth kernel: μ [N, H, W], 0 = background;
+    ``cam_row`` as ``render_depth`` takes it."""
+    mu = render_mu_reference(verts, faces, cam, t, q, backface_cull, cam_row)
     return mu.reshape(t.shape[0], cam.height, cam.width)
 
 
 def render_score_reference(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
                            variant="association", backface_cull=True, hyper=None,
-                           return_mu=False):
+                           return_mu=False, cam_row=None):
     """Plain PyTorch version of the kernel: (ell [N], sum_o [N]), and with
     ``return_mu`` also μ [N, H, W]. ``hyper``: None or [pixel_sigma,
-    association_sigma] in place of the params values."""
+    association_sigma] in place of the params values; ``cam_row`` as
+    ``render_score`` takes it."""
     from ..models.fused import make_hyper_score_fn, make_score_fn
 
     score_fn = (make_score_fn(params, variant) if hyper is None
                 else functools.partial(make_hyper_score_fn(params, variant), hyper=hyper))
-    mu = render_mu_reference(verts, faces, cam, t, q, backface_cull)
+    mu = render_mu_reference(verts, faces, cam, t, q, backface_cull, cam_row)
     zf = z.reshape(-1)
     prior = torch.as_tensor(prior_o, dtype=zf.dtype, device=zf.device)
     prior = prior.expand(cam.height, cam.width).reshape(-1)
@@ -456,11 +490,11 @@ def build_library(phase_clocks=False):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     plan = [i] * len(_PLAN_ARGS)
     fn = lib.bpe_render_score
-    fn.argtypes = [p, i, p, i, p, p, i, p, p, i, i, f, f, f, f, f, f, f, i, i,
+    fn.argtypes = [p, i, p, i, p, p, i, p, p, i, i, f, f, f, f, f, f, f, p, i, i,
                    f, f, f, f, f, p, p, p, p, p, *plan, p]
     fn.restype = ctypes.c_int
     fn = lib.bpe_render_depth
-    fn.argtypes = [p, i, p, i, p, p, i, i, i, f, f, f, f, f, f, f, i, p, *plan, i, p]
+    fn.argtypes = [p, i, p, i, p, p, i, i, i, f, f, f, f, f, f, f, p, i, p, *plan, i, p]
     fn.restype = ctypes.c_int
     return lib, log
 
@@ -510,6 +544,12 @@ def _is_hopper(index):
     return torch.cuda.get_device_capability(index) == (9, 0)
 
 
+def _check_cam_row(dev, cam_row):
+    if cam_row is not None:
+        check_on_device(dev, cam_row=cam_row)
+        _check("cam_row", cam_row, torch.float32, (len(CAMERA_ROW),))
+
+
 def _check_hopper(dev, x, kernel):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -553,7 +593,7 @@ def mesh_tensors(verts, faces, device):
 
 
 def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="cuda",
-                 tuning=None):
+                 tuning=None, cam_row=None):
     """Depth render of N poses: μ [N, H, W] f32, 0 = background.
 
     verts [V, 3] f32, faces [F, 3] int32, t [N, 3] f32, q [N, 4] f32 (w, x, y,
@@ -564,11 +604,14 @@ def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="
     several blocks per pose and a second small kernel finishes the image).
     ``tuning``: None, or ``launch_plan``'s ``face_budget``, ``pixel_budget``
     and ``face_slices`` for the kernel launch; they change how the work is
-    divided, never the image."""
+    divided, never the image. ``cam_row``: None, or an f32 [7] device row of
+    ``camera_row`` values that the kernel reads in place of ``cam``'s (whose
+    size still sets the image's)."""
     dev = resolve_device(device)
     _check_mesh_and_poses(dev, verts, faces, t, q)
+    _check_cam_row(dev, cam_row)
     if dev.type == "cpu":
-        return render_depth_reference(verts, faces, cam, t, q, backface_cull)
+        return render_depth_reference(verts, faces, cam, t, q, backface_cull, cam_row)
     _check_hopper(dev, verts, "render_depth")
     n = t.shape[0]
     mu = torch.empty((n, cam.height, cam.width), dtype=torch.float32, device=verts.device)
@@ -582,11 +625,12 @@ def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="
             verts.data_ptr(), verts.shape[0], faces.data_ptr(), faces.shape[0],
             t.data_ptr(), q.data_ptr(), n, cam.height, cam.width, c["fx"], c["fy"],
             c["s"], c["cx_off"], c["cy_off"], c["near"], c["far"],
+            None if cam_row is None else cam_row.data_ptr(),
             int(bool(backface_cull)), mu.data_ptr(), *plan,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_depth kernel launch failed: cudaError {err}")
-    render_depth.launches += 1
+    capture.count(("render_depth", None))
     return mu
 
 
@@ -595,7 +639,7 @@ render_depth.launches = 0
 
 def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
                  variant="association", backface_cull=True, hyper=None, device="cuda",
-                 return_mu=False, tuning=None):
+                 return_mu=False, tuning=None, cam_row=None):
     """Fused transform + render + associate + score for N poses.
 
     verts [V, 3] f32, faces [F, 3] int32, t [N, 3] f32, q [N, 4] f32 (w, x, y, z),
@@ -610,7 +654,8 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
     launches and ``render_score.launches_by`` counts them by epilogue
     (``"+hyper"`` added for launches with a hyper row, ``"+mu"`` for launches
     that write the image). ``tuning``: as for ``render_depth``, without
-    ``face_slices`` (a score kernel takes one block per pose)."""
+    ``face_slices`` (a score kernel takes one block per pose); ``cam_row``:
+    as for ``render_depth``."""
     dev = resolve_device(device)
     if variant not in SCORE_VARIANTS:
         raise ValueError(f"unknown score variant {variant!r}")
@@ -620,9 +665,10 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
     if hyper is not None:
         check_on_device(dev, hyper=hyper)
         _check("hyper", hyper, torch.float32, (2,))
+    _check_cam_row(dev, cam_row)
     if dev.type == "cpu":
         return render_score_reference(verts, faces, cam, t, q, z, prior_o, params,
-                                      variant, backface_cull, hyper, return_mu)
+                                      variant, backface_cull, hyper, return_mu, cam_row)
     _check_hopper(dev, verts, "render_score")
 
     if not isinstance(prior_o, torch.Tensor) and np.ndim(prior_o) == 0:
@@ -655,7 +701,8 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
             verts.data_ptr(), verts.shape[0], faces.data_ptr(), faces.shape[0],
             t.data_ptr(), q.data_ptr(), n, z.data_ptr(), prior.data_ptr(),
             cam.height, cam.width, c["fx"], c["fy"], c["s"], c["cx_off"],
-            c["cy_off"], c["near"], c["far"], int(bool(backface_cull)),
+            c["cy_off"], c["near"], c["far"],
+            None if cam_row is None else cam_row.data_ptr(), int(bool(backface_cull)),
             EPILOGUES[SCORE_VARIANTS[variant]], params.min_depth, params.max_depth,
             params.pixel_theta, params.pixel_sigma, params.association_sigma,
             None if hyper is None else hyper.data_ptr(),
@@ -664,10 +711,24 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
             None if background is None else background.data_ptr(), *plan, stream)
     if err != 0:
         raise RuntimeError(f"render_score kernel launch failed: cudaError {err}")
-    render_score.launches += 1
-    render_score.launches_by[_kernel_name(variant, hyper, return_mu)] += 1
+    capture.count(("render_score", _kernel_name(variant, hyper, return_mu)))
     return out
 
 
 render_score.launches = 0
 render_score.launches_by = collections.Counter()
+
+
+def _count_launch(key, n):
+    """Add reported launches (``capture.count``) to the wrappers' counters."""
+    if not isinstance(key, tuple) or len(key) != 2:
+        return
+    kernel, name = key
+    if kernel == "render_score":
+        render_score.launches += n
+        render_score.launches_by[name] += n
+    elif kernel == "render_depth":
+        render_depth.launches += n
+
+
+capture.add_listener(_count_launch)

@@ -14,7 +14,8 @@ unsharded one, draw for draw, up to the order of the reductions.
 The backend follows the device: NCCL for CUDA tensors, gloo for CPU
 tensors, and a chain refuses a group of the other backend. A particle count
 the world size does not divide raises (JAX would replicate such arrays
-instead).
+instead). The sharded chain runs the eager step loop (``sample_chain(...,
+captured=False)``): its collectives are not captured into CUDA graphs yet.
 """
 
 from __future__ import annotations
@@ -93,8 +94,10 @@ def sharded_sample_chain(seed: int, model, sampler, n_steps, n_particles, group,
     if backend != backend_for(model.device):
         raise RuntimeError(f"a {backend} group cannot reduce tensors on {model.device}")
     shard = ParticleShard(group, dist.get_rank(group), dist.get_world_size(group), n_particles)
+    # eager: a step's all-reduces and all-gathers are not captured yet (the
+    # NCCL collectives need a capture of their own)
     outs, state = sample_chain(seed, model, shard_sampler(sampler, shard), n_steps,
-                               n_particles, collect_vars, device=model.device)
+                               n_particles, collect_vars, device=model.device, captured=False)
     # per-particle outputs are [steps, particles, ...]; evidence, ESS and
     # temperature [steps] are the same on every process
     outs = {k: shard.gather(v, 1) if v.dim() >= 2 else v for k, v in outs.items()}

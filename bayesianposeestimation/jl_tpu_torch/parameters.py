@@ -13,9 +13,20 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
-__all__ = ["Parameters", "Experiment"]
+__all__ = ["Parameters", "Experiment", "sigma_row"]
+
+
+def sigma_row(values, device) -> torch.Tensor:
+    """A sigma of ``Parameters`` (``sigma_t``, ``proposal_sigma_r``, ...) as
+    an fp32 tensor on ``device``. A tuned runner puts a device row in the
+    field, which the priors and proposals then read at run time, as the JAX
+    package traces them; that tensor is returned as it is."""
+    if isinstance(values, torch.Tensor):
+        return values
+    return torch.as_tensor(np.asarray(values, np.float32), device=device)
 
 
 @dataclass(frozen=True)
@@ -38,7 +49,7 @@ class Parameters:
     # Image model
     c_reg: float = 50.0
 
-    # Pose model
+    # Pose model (sigma_t and proposal_sigma_r may hold device rows: sigma_row)
     sigma_t: tuple = (0.03, 0.03, 0.03)
     # Association model
     o_mask_is: float = 0.7

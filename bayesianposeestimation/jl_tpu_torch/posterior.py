@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .capture import count
 from .devices import resolve_device
 from .graph import (
     BroadcastedNode,
@@ -69,6 +70,7 @@ class PosteriorModel:
     def prior_and_likelihood(self, sample: Sample, batch_ndim: int = 1):
         """(ℓ_prior + logjac, ℓ_like), each of the leading ``batch_ndim``
         dims of the sample (e.g. [tries, chains])."""
+        count(("evaluation", self.device.type))
         model_sample, logjac = to_model_domain(sample, self.bijectors, batch_ndim)
         values = evaluate_deterministic(self.graph, model_sample.variables)
         for name, node in self.likelihood.items():

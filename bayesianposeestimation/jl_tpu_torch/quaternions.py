@@ -52,8 +52,10 @@ def qmul(q1, q2):
 
 
 def qconj(q):
-    """Conjugate (= inverse for unit quaternions)."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    """Conjugate (= inverse for unit quaternions): the vector part negated,
+    which is q * (1, -1, -1, -1) exactly, without a host-to-device copy of
+    the signs (a captured step may hold none)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def qnorm(q):

@@ -4,7 +4,9 @@ JAX threads one key through every step; the port keeps two explicit
 ``torch.Generator``s instead: ``device`` for all particle noise (on the
 tensors' device) and ``host`` (CPU) for choices the host makes, such as which
 sub-sampler a ``ComposedSampler`` runs. Drawing those on the host keeps the
-step free of device-to-host synchronisation.
+step free of device-to-host synchronisation. A captured chain
+(``capture.ChainRunner``) registers ``device`` with each of its graphs and
+reseeds it per run.
 """
 
 from __future__ import annotations
@@ -28,3 +30,11 @@ class Rngs:
         host = torch.Generator(device="cpu")
         host.manual_seed(seed + 1)
         return cls(dev, host)
+
+    def reseed(self, seed: int) -> "Rngs":
+        """Reseed both generators in place as ``from_seed`` seeds new ones
+        (a captured chain keeps its generators: they are registered with its
+        graphs)."""
+        self.device.manual_seed(seed)
+        self.host.manual_seed(seed + 1)
+        return self

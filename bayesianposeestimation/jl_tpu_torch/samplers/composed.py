@@ -30,9 +30,12 @@ class ComposedSampler:
         """The first sampler initializes."""
         return self.samplers[0].init(rngs, model, n_particles)
 
+    def pick(self, rngs) -> int:
+        """The index of this step's sub-sampler, drawn from the host generator."""
+        return int(torch.multinomial(self.probs(), 1, generator=rngs.host))
+
     def step(self, rngs, model, state):
-        idx = int(torch.multinomial(self.probs(), 1, generator=rngs.host))
-        return self.samplers[idx].step(rngs, model, state)
+        return self.samplers[self.pick(rngs)].step(rngs, model, state)
 
 
 @dataclass(frozen=True, eq=False)

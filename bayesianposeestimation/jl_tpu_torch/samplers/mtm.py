@@ -96,7 +96,7 @@ class MultipleTry:
         dev = prev.log_prob.device
         chain = torch.arange(prev.log_prob.shape[0], device=dev)
         steps = torch.arange(t, device=dev)
-        neg_inf = torch.tensor(-torch.inf, device=dev)
+        neg_inf = torch.full((), -torch.inf, device=dev)
         zero = torch.zeros((), device=dev)
 
         # T tries per chain, weighted; tries >= m are masked out

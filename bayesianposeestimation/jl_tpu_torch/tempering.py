@@ -3,12 +3,30 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import math
 
 import torch
 
-__all__ = ["ConstantSchedule", "LinearSchedule", "ExponentialSchedule"]
+__all__ = ["ConstantSchedule", "LinearSchedule", "ExponentialSchedule", "StepCount"]
+
+
+class StepCount:
+    """A chain's step count as ``LinearSchedule`` reads it on the device:
+    the fp32 increment 1/n_steps in a 0-dim tensor, which ``set`` rewrites
+    between runs, so one captured step serves every step count (a paced
+    sweep changes it from run to run). The increment is the fp32 rounding
+    of the host's 1/n_steps, the value the schedule adds for an int."""
+
+    def __init__(self, device, n_steps: int = 1):
+        self.increment = torch.empty((), dtype=torch.float32, device=device)
+        self.set(n_steps)
+
+    def set(self, n_steps: int) -> "StepCount":
+        self.n_steps = int(n_steps)
+        self.increment.fill_(float(torch.tensor(1.0 / self.n_steps, dtype=torch.float32)))
+        return self
 
 
 @dataclass(frozen=True)
@@ -22,12 +40,15 @@ class ConstantSchedule:
 
 @dataclass(frozen=True)
 class LinearSchedule:
-    """ϕ += 1/n_steps, capped at 1 (fp32, on the temperature's device)."""
+    """ϕ += 1/n_steps, capped at 1 (fp32, on the temperature's device).
+    ``n_steps``: an int, or a ``StepCount`` read on the device."""
 
-    n_steps: int
+    n_steps: Any
 
     def increment(self, temperature: torch.Tensor) -> torch.Tensor:
-        return torch.clamp(temperature + 1.0 / self.n_steps, max=1.0)
+        step = (self.n_steps.increment if isinstance(self.n_steps, StepCount)
+                else 1.0 / self.n_steps)
+        return torch.clamp(temperature + step, max=1.0)
 
 
 @dataclass(frozen=True)

@@ -30,7 +30,6 @@ from .. import quaternions as quat
 from ..camera import depth_to_distance
 from ..ops.cuda_raster import render_depth
 from ..ops.rasterize import render_depth_batch
-from ..rngs import Rngs
 
 __all__ = [
     "ADDS_THETA",
@@ -329,29 +328,32 @@ def recall_ci(n_correct, n_total, z=1.96):
 
 def mean_step_time(seed, model, sampler, n_particles=None, max_seconds=0.5,
                    steps_per_probe=(8, 48), return_overhead=False):
-    """Mean wall time of one sampler step on ``model``'s device.
+    """Mean wall time of one sampler step on ``model``'s device, as a chain
+    runs it: each probe is a run of the model's captured chain runner
+    (``samplers.chain.chain_runner``: init, then replays of the captured
+    steps), whose capture the first probe pays, before any probe is timed.
 
     Two run lengths are timed (the minimum over repeats, within
     ``max_seconds`` in all) and differenced, t_step = (T(n_long) -
     T(n_short)) / (n_long - n_short), which cancels the per-run constant
-    (the final synchronisation and the first launches). The first run of
-    each length is a warm-up and is not timed. Where the difference holds
-    less than 20 ms of work, a longer run (>= 50 ms of steps) re-measures
-    the slope. ``return_overhead``: also return the per-run constant, from
-    the mean of the short runs."""
+    (the init, the final synchronisation and the first launches). The first
+    run of each length is a warm-up and is not timed. Where the difference
+    holds less than 20 ms of work, a longer run (>= 50 ms of steps)
+    re-measures the slope. ``return_overhead``: also return the per-run
+    constant, from the mean of the short runs."""
+    from ..samplers.chain import chain_runner
+
     n_short, n_long = steps_per_probe
     dev = torch.device(model.device)
-    rngs = Rngs.from_seed(seed, dev)
-    _, state = sampler.init(rngs, model, n_particles)
+    runner = chain_runner(model, sampler, n_particles)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     def probe(n):
-        s = state
-        for _ in range(n):
-            s = sampler.step(rngs, model, s)[1]
+        runner.start(seed)
+        runner.advance(n)
         sync()
 
     def timed(n, reps_max=20):

@@ -81,35 +81,27 @@ class EvaluationCount:
     """Counts likelihood evaluations of fused (``FusedPosterior``) and graph
     (``PosteriorModel``) posteriors on one device type (default the card's:
     re-evaluations by the plain version on the CPU are not counted) while in
-    use."""
+    use. Each evaluation reports itself through ``capture.count``, so a
+    replayed CUDA graph counts the evaluations its capture recorded."""
 
     def __init__(self, device_type="cuda"):
         self.device_type = device_type
 
-    def _classes(self):
-        from bayesianposeestimation.jl_tpu_torch.models.fused import FusedPosterior
-        from bayesianposeestimation.jl_tpu_torch.posterior import PosteriorModel
-
-        return FusedPosterior, PosteriorModel
+    def _count(self, key, n):
+        if key == ("evaluation", self.device_type):
+            self.n += n
 
     def __enter__(self):
+        from bayesianposeestimation.jl_tpu_torch import capture
+
         self.n = 0
-        self._inner = {cls: cls.prior_and_likelihood for cls in self._classes()}
-
-        def counting(inner):
-            def counted(posterior, sample, *args):
-                self.n += posterior.device.type == self.device_type
-                return inner(posterior, sample, *args)
-
-            return counted
-
-        for cls, inner in self._inner.items():
-            cls.prior_and_likelihood = counting(inner)
+        capture.add_listener(self._count)
         return self
 
     def __exit__(self, *exc):
-        for cls, inner in self._inner.items():
-            cls.prior_and_likelihood = inner
+        from bayesianposeestimation.jl_tpu_torch import capture
+
+        capture.remove_listener(self._count)
 
 
 def run_chain(device, n_steps=500, n_particles=100, seed=1, trials=1):

@@ -10,13 +10,15 @@ The benchmark chain is bench.py's configuration through the port
 (bench_torch.run_chain: monkey mesh, 30x30, 100 particles, tempered SMC-MH,
 association posterior); ``tracking`` is scripts/torch_ros_particle_filter.py's
 configuration (80x60, 256-face mesh, 120-frame synthetic stream; coordinate
-filter with 600 particles, bootstrap filter with 1250). Each runs once
-unprofiled for the wall time (after a warm-up run), then once under
-torch.profiler, and reports: device busy time (sum of CUDA kernel durations;
-one stream, so kernels do not overlap), the device's idle share of the
-profiled and of the unprofiled wall time, CUDA kernel launches per step (per
-frame for the filters), the render_score kernel's share of the busy time, and
-device time by kernel name.
+filter with 600 particles, bootstrap filter with 1250). Each runs eager
+(``captured=False``) and captured (its steps replayed from CUDA graphs), each
+once unprofiled for the wall time (after a warm-up run, which captures),
+then once under torch.profiler, and reports: device busy time (sum of CUDA
+kernel durations; one stream, so kernels do not overlap), the device's idle
+share of the profiled and of the unprofiled wall time, CUDA kernels and the
+host's launch calls (kernels, graphs, copies, fills) per step (per frame for
+the filters), the render_score kernel's share of the busy time and its
+device time per launch in the chain, and device time by kernel name.
 
 ``kernels`` times ``csrc/render_score.cu`` alone at the shapes those paths
 give it (bench shape: 1280-face monkey, 30x30, 100 poses; tracking shape:
@@ -52,9 +54,12 @@ REPO = Path(__file__).resolve().parent
 
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall s, device busy s, CUDA kernel
-    count, top kernels by device time)."""
+    count, top kernels by device time, and the render_score kernel's time,
+    launches and share of the busy time with the host's launch calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -62,12 +67,14 @@ def profiled(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = collections.defaultdict(lambda: [0.0, 0])
+    host = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
+        elif e.name in chip_smoke.HOST_LAUNCH_CALLS:
+            host[e.name] += 1
     busy_s = sum(v[0] for v in by_name.values()) * 1e-6
-    import chip_smoke
 
     raster = [v for k, v in by_name.items() if chip_smoke.is_raster_kernel(k)]
     raster_s = sum(v[0] for v in raster) * 1e-6
@@ -77,11 +84,16 @@ def profiled(fn):
         "render_score_kernel_s": raster_s,
         "render_score_kernel_launches": sum(v[1] for k, v in by_name.items()
                                             if "render_score_kernel" in k),
-        "render_score_kernel_share_of_busy": raster_s / busy_s if busy_s else None}
+        "render_score_kernel_share_of_busy": raster_s / busy_s if busy_s else None,
+        "host_launch_calls": dict(host)}
 
 
 def report(result, wall, prof_wall, busy_s, n_kernels, n_units, unit, top, raster):
     result.update(raster)
+    result[f"host_launches_per_{unit}"] = sum(raster["host_launch_calls"].values()) / n_units
+    if raster["render_score_kernel_launches"]:
+        result["render_score_kernel_ms_per_launch"] = (
+            raster["render_score_kernel_s"] * 1e3 / raster["render_score_kernel_launches"])
     result.update({
         "wall_s": wall, "profiled_wall_s": prof_wall, "device_busy_s": busy_s,
         "device_idle_share_profiled": 1.0 - busy_s / prof_wall if busy_s else None,
@@ -94,6 +106,10 @@ def report(result, wall, prof_wall, busy_s, n_kernels, n_units, unit, top, raste
 
 
 def profile_chain(card):
+    """The flagship chain eager (``captured=False``) and captured: the
+    captured chain through ``bench_torch.run_chain`` (its steps replayed from
+    CUDA graphs), the eager one timed the same way, each then profiled."""
+    import torch
     from bench_torch import run_chain
 
     from bayesianposeestimation.jl_tpu_torch.models.experiment_samplers import smc_mh
@@ -101,14 +117,27 @@ def profile_chain(card):
 
     n_steps, n_particles = 500, 100
     _, _, post, walls, evals, launches, _ = run_chain("cuda", n_steps, n_particles)
-    wall, evals, launches = walls[-1], evals[-1], launches[-1]
     sampler = smc_mh(post.params, post)
-    prof_wall, busy_s, n_kernels, top, raster = profiled(
-        lambda: sample_chain(3, post, sampler, n_steps, n_particles, device="cuda"))
-    report({"card": card, "n_steps": n_steps, "n_particles": n_particles,
-            "hypotheses_per_s": n_steps * n_particles / wall,
-            "render_score_launches": launches, "likelihood_evaluations": evals},
-           wall, prof_wall, busy_s, n_kernels, n_steps, "step", top, raster)
+    for captured in (False, True):
+        def run(seed, captured=captured):
+            return sample_chain(seed, post, sampler, n_steps, n_particles, device="cuda",
+                                captured=captured)
+
+        if captured:
+            wall = walls[-1]
+        else:
+            run(2)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        run(3)  # the captured chain's runner is the sampler's own: capture it first
+        prof_wall, busy_s, n_kernels, top, raster = profiled(lambda: run(3))
+        report({"card": card, "captured": captured, "n_steps": n_steps,
+                "n_particles": n_particles, "hypotheses_per_s": n_steps * n_particles / wall,
+                "render_score_launches": launches[-1], "likelihood_evaluations": evals[-1]},
+               wall, prof_wall, busy_s, n_kernels, n_steps, "step", top, raster)
 
 
 def profile_tracking(card, n_frames=120, width=80, height=60):
@@ -129,19 +158,22 @@ def profile_tracking(card, n_frames=120, width=80, height=60):
         params = track.filter_params(kind, width, height)
         experiment, depth, _ = track.tracking_setup(stream, mesh, params, "cuda")
 
-        def run(seed=0):
-            return pf(seed, posterior_fn, params, experiment, depth, device="cuda")
+        for captured in (False, True):
+            def run(seed=0, captured=captured):
+                return pf(seed, posterior_fn, params, experiment, depth, device="cuda",
+                          captured=captured)
 
-        run(1)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        prof_wall, busy_s, n_kernels, top, raster = profiled(run)
-        report({"card": card, "filter": kind, "n_particles": params.n_particles,
-                "frames": n_frames - 1, "fps": (n_frames - 1) / wall},
-               wall, prof_wall, busy_s, n_kernels, n_frames - 1, "frame", top, raster)
+            run(1)  # warm-up (the capture)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof_wall, busy_s, n_kernels, top, raster = profiled(run)
+            report({"card": card, "filter": kind, "captured": captured,
+                    "n_particles": params.n_particles, "frames": n_frames - 1,
+                    "fps": (n_frames - 1) / wall},
+                   wall, prof_wall, busy_s, n_kernels, n_frames - 1, "frame", top, raster)
 
 
 def graph_ms(fn, n=50, reps=20):
@@ -150,11 +182,13 @@ def graph_ms(fn, n=50, reps=20):
     events. None (with the reason printed) if the capture fails."""
     import torch
 
+    from bayesianposeestimation.jl_tpu_torch import capture
+
     try:
         fn()
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with capture.recording(), torch.cuda.graph(graph):  # the capture launches nothing
             for _ in range(n):
                 fn()
         graph.replay()

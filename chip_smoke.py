@@ -179,7 +179,24 @@ Phases (each prints its results; any failure exits non-zero):
      torch_simple_logjac.py's three chains at 2,000 steps, each mean within
      the script's stated bound of theta; (c) the colour PNG and JPEG
      fixtures of tests/fixtures/color bitwise against their checked-in
-     imageio decodes.
+     imageio decodes;
+  18. the chains captured as CUDA graphs against the eager loop
+     (``captured=False``): (a) the flagship chain (phase 3's configuration),
+     (b) phase 4's conditioned runner over its four scenes at two step
+     counts through one capture and the tuned runner over two candidates
+     through one capture, (c) both trackers on phase 6's stream (coordinate
+     600, bootstrap 1250) and the unfused coordinate filter: each captured
+     path bitwise equal to its eager run, the flagship reseeded equal and
+     with another seed different, one capture per runner; hypotheses/s,
+     ms per step (frame), the device's idle
+     share and the host's launch calls per step, eager and captured, are
+     printed, not gated; (d) each path in a process of its own (beyond a
+     fresh process's first session torch.profiler drops a launch now and
+     then; a second process where the first's dropped), the profiler's
+     render_score kernels of one replayed flagship chain and of one
+     replayed run of each tracker equal to the counted launches and
+     evaluations and to 1 + k (steps - 1). Every chain of phases 3-17 runs
+     captured (the default), so their launch gates count replays.
 Every phase prints the seconds since the start when it ends.
 Phase 2 also holds ``render_depth`` and ``render_score(return_mu=True)``
 against their plain versions and each other, and times them at the tracking
@@ -189,6 +206,11 @@ ell and sum_o bitwise equal to the unforced launch;
 launches ``render_depth`` with forced face slices (one block per pose and
 several), which must leave its image bitwise equal;
 runs the same poses with and without the background-score kernel (bitwise);
+reads the camera from a device row (``cam_row``) at the bench and tracking
+shapes: every epilogue and both images bitwise equal to the launch with host
+scalars, within the phase's tolerances of the plain version given the same
+row, and a second camera written into the same row bitwise equal to its own
+launch;
 renders 8 poses at 640x480 (an image that takes several shared-memory tiles)
 and a 20480-face mesh at 160x120 (faces in chunks, vertices uncached) against
 the plain version, the depth-only kernel (each of its plans) and the score
@@ -500,6 +522,75 @@ def forced_plan_check(args, label, device, failures):
               f"{auto} face slices): render_depth image bitwise equal {same}")
         if not same:
             failures.append(f"forced plan {tuning} at {label}")
+
+
+def camera_row_check(args, label, device, failures):
+    """Phase 2: the camera read from a device row (``cam_row``, the Pallas
+    kernels' ``cam_ref``): every epilogue, ``return_mu`` and ``render_depth``
+    with the row against the launch with host scalars (bitwise) and against
+    the plain versions given the same row (phase 2's tolerances for the sums,
+    the depth check of ``compare_depth_kernels`` for the images); then a
+    second camera written into the same row against its host-scalar launch,
+    bitwise."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        EPILOGUES,
+        SCORE_VARIANTS,
+        camera_row,
+        render_depth,
+        render_depth_reference,
+        render_score,
+        render_score_reference,
+    )
+
+    verts, faces, cam, t, q = args[:5]
+    row = torch.as_tensor(camera_row(cam)).to(device)
+    bitwise, worst, ok = True, 0.0, True
+    for epilogue in EPILOGUES:
+        variant = next(v for v, e in SCORE_VARIANTS.items() if e == epilogue)
+        host = render_score(*args, variant=variant, device=device)
+        from_row = render_score(*args, variant=variant, device=device, cam_row=row)
+        plain = render_score_reference(*args, variant=variant, cam_row=row)
+        bitwise &= all(bool(torch.equal(a, b)) for a, b in zip(host, from_row))
+        k = torch.cat(from_row).cpu().numpy()
+        r = torch.cat(plain).cpu().numpy()
+        rel = np.abs(k - r) / np.maximum(np.abs(r), 1e-30)
+        worst = max(worst, float(np.max(np.abs(k - r))))
+        ok &= bool(np.allclose(k, r, **TOL)) and float(np.median(rel)) <= MEDIAN_REL_TOL
+    mu_host = render_depth(*args[:5], device=device)
+    mu_row = render_depth(*args[:5], device=device, cam_row=row)
+    mu_plain = render_depth_reference(*args[:5], cam_row=row)
+    mu_score = render_score(*args, variant="simple", device=device, return_mu=True,
+                            cam_row=row)[2]
+    covered = mu_plain > 0
+    mu_rel = float(((mu_row - mu_plain).abs() / mu_plain.clamp(min=1e-30))[covered].max())
+    images_bitwise = bool(torch.equal(mu_host, mu_row) and torch.equal(mu_score, mu_row))
+    ok &= bool(torch.equal(mu_row > 0, covered)) and mu_rel <= MU_REL_TOL
+    # another crop camera of the same size through the same row buffer
+    other = dataclasses.replace(cam, f_x=cam.f_x * 1.07, c_x=cam.c_x + 0.6, c_y=cam.c_y - 0.4)
+    row.copy_(torch.as_tensor(camera_row(other)))
+    moved_ok = (all(bool(torch.equal(a, b)) for a, b in zip(
+        render_score(*args, device=device, cam_row=row),
+        render_score(*args[:2], other, *args[3:], device=device)))
+        and bool(torch.equal(render_depth(*args[:5], device=device, cam_row=row),
+                             render_depth(*args[:2], other, *args[3:5], device=device))))
+    row.copy_(torch.as_tensor(camera_row(cam)))
+    times = {name: (device_ms(lambda kw=kw: render_score(*args, device=device, **kw), 50),
+                    device_ms(lambda kw=kw: render_depth(*args[:5], device=device, **kw), 50))
+             for name, kw in (("host scalars", {}), ("row", {"cam_row": row}))}
+    print(f"phase 2 camera row at {label}: every epilogue bitwise equal to the host scalars "
+          f"{bitwise}, vs plain with the row max |d| {worst:.5f} (ok {ok}); render_depth and "
+          f"return_mu images bitwise equal {images_bitwise}, max rel vs plain {mu_rel:.2e}; "
+          f"a second camera through the same row bitwise {moved_ok}; device ms "
+          f"render_score[association] / render_depth with host scalars "
+          f"{times['host scalars'][0]} / {times['host scalars'][1]}, from the row "
+          f"{times['row'][0]} / {times['row'][1]} (profiler)")
+    if not (bitwise and ok and images_bitwise and moved_ok):
+        failures.append(f"phase 2 camera row at {label}")
 
 
 def background_path_check(args, device, failures):
@@ -1453,17 +1544,18 @@ class RunnerLog:
         def make(params, verts, faces, variant, factory, n_steps, *a, **kw):
             run = inner(params, verts, faces, variant, factory, n_steps, *a, **kw)
 
-            def logged(seed, cam, obs, prior_o, prior_t, *rest):
+            def logged(seed, cam, obs, prior_o, prior_t, *rest, **kw):
                 l0, e0 = render_score.launches, self.evals.n
-                out = run(seed, cam, obs, prior_o, prior_t, *rest)
+                out = run(seed, cam, obs, prior_o, prior_t, *rest, **kw)
                 self.calls.append(dict(seed=seed, params=params, verts=verts, faces=faces,
-                                       n_steps=n_steps,
+                                       n_steps=kw.get("n_steps") or n_steps,
                                        variant=variant, args=(cam, obs, prior_o, prior_t),
                                        rest=rest, out=out,
                                        launches=render_score.launches - l0,
                                        evals=self.evals.n - e0))
                 return out
 
+            logged.runners = run.runners  # its captured chains, which make_tuned_chain reads
             return logged
 
         fused.make_conditioned_chain = make
@@ -2832,6 +2924,9 @@ def hyperopt_runs(device, failures, smi, workdir):
         one_calibration = len(calibrations) == len(by_object) == len(calib)
         wrong = [(c["launches"], c["evals"], c["n_steps"]) for c in log.calls
                  if not c["launches"] == c["evals"] == 1 + per_step * (c["n_steps"] - 1)]
+        # the rows' runs: the warm-up that captures each object's runner runs at
+        # a seed from seed0 + 10**6 on, as scene_inference's (phase 14b)
+        timed = [c for c in log.calls if c["seed"] < c["params"].seed % (2**31) + 10**6]
         raws = [load_artifact(p) for p in sorted(
             (Path(workdir) / "exp_raw" / f"{args.experiment_name}_cuda").glob("*.npz"))]
         finite = len(raws) == 2 and all(
@@ -2852,7 +2947,8 @@ def hyperopt_runs(device, failures, smi, workdir):
               f"budget by object {json.dumps(steps)} (step ms "
               f"{json.dumps({k: round(v['step_time'] * 1e3, 4) for k, v in calib.items()})}; "
               f"the JAX run's on its TPU, scene 1: {jax_steps}); one step count per object for "
-              f"both trials {same_steps}; {len(log.calls)} chain runs for {n_rows} rows; wall "
+              f"both trials {same_steps}; {len(log.calls)} chain runs "
+              f"({len(log.calls) - len(timed)} warm-ups) for {n_rows} rows; wall "
               f"per pose mean {np.mean(walls):.4f} s max {np.max(walls):.4f} s; launches "
               f"{launches} = evaluations {evals.n}; costs "
               f"{[round(h['cost'], 4) for h in trials]} (JAX "
@@ -2861,9 +2957,9 @@ def hyperopt_runs(device, failures, smi, workdir):
         if not one_calibration:
             failures.append(f"phase 15b {name}: {len(calibrations)} calibrations for "
                             f"{len(calib)} objects")
-        if not same_steps or len(log.calls) != n_rows:
+        if not same_steps or len(timed) != n_rows:
             failures.append(f"phase 15b {name}: step counts differ between trials, or "
-                            f"{len(log.calls)} chain runs for {n_rows} rows")
+                            f"{len(timed)} chain runs for {n_rows} rows")
         if not finite:
             failures.append(f"phase 15b {name}: non-finite estimates or missing artifacts")
         if wrong or launches != evals.n or launches == 0:
@@ -3448,6 +3544,408 @@ def figures_phase(device, failures, smi):
     return rows
 
 
+# -- phase 18: the captured chains against the eager loop -----------------------
+
+CAPTURE_REPS = 3  # timed runs of each path after its warm-up
+# the host's calls that put work on the device: kernel launches, graph
+# launches, copies and fills
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
+
+
+def tree_difference(a, b):
+    """(bitwise equal, max relative difference over the finite entries, or
+    inf where the structure or the non-finite entries differ) of two states
+    or output dicts."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.capture import tree_leaves
+
+    sa, la = tree_leaves(a)
+    sb, lb = tree_leaves(b)
+    if sa != sb:
+        return False, math.inf
+    equal, worst = True, 0.0
+    for x, y in zip(la, lb):
+        if torch.equal(x, y) or torch.allclose(x, y, rtol=0, atol=0, equal_nan=True):
+            continue
+        equal = False
+        xd, yd = x.double(), y.double()
+        fin = torch.isfinite(xd) & torch.isfinite(yd)
+        if not torch.equal(torch.isfinite(xd), torch.isfinite(yd)):
+            return False, math.inf
+        if bool(fin.any()):
+            rel = (xd - yd).abs() / yd.abs().clamp(min=1e-12)
+            worst = max(worst, float(rel[fin].max()))
+    return equal, worst
+
+
+def profile_path(fn, n_units):
+    """``fn()`` under torch.profiler: the profiled wall seconds, the device's
+    busy seconds (kernels, copies and fills; one stream at a time) and idle
+    share, the host's launches per unit (``HOST_LAUNCH_CALLS``), its graph
+    launches and the kernels of csrc/render_score.cu the device ran (those
+    a graph replay runs included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, host, graphs, raster = 0.0, 0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            raster += "render_score_kernel" in e.name
+        elif e.name in HOST_LAUNCH_CALLS:
+            host += 1
+            graphs += e.name == "cudaGraphLaunch"
+    busy = busy_us * 1e-6
+    return {"profiled_wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall if wall else None,
+            "host_launches_per_unit": host / n_units, "graph_launches": graphs,
+            "render_score_kernels": raster}
+
+
+def compare_paths(label, eager, captured, failures, phase="18"):
+    """Print and gate one captured-vs-eager comparison (bitwise expected)."""
+    equal, rel = tree_difference(captured, eager)
+    print(f"phase {phase} {label}: captured vs eager bitwise equal {equal}"
+          + ("" if equal else f", max relative difference {rel:.3g}"))
+    if not equal:
+        failures.append(f"phase {phase} {label}: captured differs from eager (max rel {rel})")
+    return equal
+
+
+def timed_path(run, n_units, trials=CAPTURE_REPS):
+    """A warm-up call of ``run(seed)`` (the capture, on a captured path),
+    then ``trials`` timed calls at one seed: (the last output, wall seconds
+    of each call)."""
+    import torch
+
+    run(1000)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        out = run(0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def path_metrics(label, run, n_units, unit, n_particles, smi, profile=None):
+    """Time ``run`` and profile one more call of it (or ``profile`` = (a
+    call, its units), a shorter run of the same path): wall seconds, ms per
+    unit, hypotheses (particles x units) per second, the device's idle share
+    of the profiled and the unprofiled wall and the host's launches per
+    unit, with the profiler's render_score kernels beside the counted
+    launches (printed; phase 18d gates the count in a process of its own)."""
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+
+    out, walls = timed_path(run, n_units)
+    best = min(walls)
+    prof_fn, prof_units = profile or ((lambda: run(0)), n_units)
+    l0 = render_score.launches
+    with EvaluationCount() as evals:
+        prof = profile_path(prof_fn, prof_units)
+    launches = render_score.launches - l0
+    busy_per_unit = prof["device_busy_s"] / prof_units
+    m = {"walls_s": walls, "ms_per_unit": best / n_units * 1e3,
+         "hypotheses_per_s": n_particles * n_units / best,
+         "idle_share_profiled": prof["idle_share"],
+         "idle_share_unprofiled": 1.0 - busy_per_unit * n_units / best,
+         "host_launches_per_unit": prof["host_launches_per_unit"],
+         "graph_launches": prof["graph_launches"],
+         "profiler_kernels": prof["render_score_kernels"], "launches": launches,
+         "evaluations": evals.n}
+    print(f"phase 18 {label} on {smi}: best of {[round(w, 4) for w in walls]} s, "
+          f"{m['ms_per_unit']:.4f} ms per {unit}, {m['hypotheses_per_s']:.1f} hypotheses/s, "
+          f"device idle {m['idle_share_unprofiled']:.3f} of the wall "
+          f"({m['idle_share_profiled']:.3f} profiled), host launches per {unit} "
+          f"{m['host_launches_per_unit']:.2f} ({m['graph_launches']} graph launches in "
+          f"{prof_units} {unit}s profiled), render_score kernels there: profiler "
+          f"{m['profiler_kernels']}, counted {launches}, likelihood evaluations {evals.n}")
+    return out, m
+
+
+def kernel_count_gate(label, counts, expected, failures):
+    """The profiler's render_score kernels of one replayed run equal the
+    counted launches and evaluations and ``expected``."""
+    c = counts
+    ok = c["profiler_kernels"] == c["launches"] == c["evaluations"] == expected
+    print(f"phase 18d {label}: profiler {c['profiler_kernels']} render_score kernels, "
+          f"counted launches {c['launches']}, evaluations {c['evaluations']}, expected "
+          f"{expected}: {'equal' if ok else 'DIFFERENT'}")
+    if not ok:
+        failures.append(f"phase 18d {label}: profiler kernels {c['profiler_kernels']}, "
+                        f"launches {c['launches']}, evaluations {c['evaluations']}, "
+                        f"expected {expected}")
+
+
+def captured_flagship(device, failures, smi, n_steps=500, n_particles=100):
+    """Phase 18a: the flagship chain (bench_torch's configuration) captured
+    and eager: bitwise equal, reseeded equal, another seed different, the
+    profiler's kernels of one replayed chain equal to the counters."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.models.experiment_samplers import smc_mh
+    from bayesianposeestimation.jl_tpu_torch.models.fused import fused_posterior
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+    from bayesianposeestimation.jl_tpu_torch.samplers import sample_chain
+    from bayesianposeestimation.jl_tpu_torch.samplers.chain import chain_runner
+
+    params = Parameters(n_steps=n_steps, n_particles=n_particles,
+                        proposal_sigma_r=(0.5, 0.5, 0.5), device=str(device))
+    exp, _, _, _ = bench_scene(device)
+    post = fused_posterior(params, exp, "association", device=device)
+    sampler = smc_mh(params, post)
+    res = {}
+    for label, captured in (("eager", False), ("captured", True)):
+        def run(seed, captured=captured):
+            return sample_chain(seed, post, sampler, n_steps, n_particles, device=device,
+                                captured=captured)
+
+        def short(captured=captured):  # profiled: 100 steps of the same path
+            return sample_chain(0, post, sampler, 101, n_particles, device=device,
+                                captured=captured)
+
+        out, m = path_metrics(f"18a flagship chain {label} (smc_mh, 1280 faces, 30x30, "
+                              f"{n_particles} particles, {n_steps} steps)", run, n_steps, "step",
+                              n_particles, smi, profile=(short, 100))
+        res[label] = (out, m)
+    compare_paths("18a flagship chain", res["eager"][0], res["captured"][0], failures)
+    again = sample_chain(0, post, sampler, n_steps, n_particles, device=device)
+    other = sample_chain(1, post, sampler, n_steps, n_particles, device=device)
+    same = tree_difference(again, res["captured"][0])[0]
+    moved = not torch.equal(other[0]["t"], again[0]["t"])
+    runner = chain_runner(post, sampler, n_particles)
+    n_graphs = sum(s.graph is not None for s in runner.steps)
+    print(f"phase 18a reseeded chain equal {same}, another seed differs {moved}; "
+          f"{n_graphs} graphs captured for {len(runner.steps)} branches")
+    if not (same and moved and n_graphs == len(runner.steps)):
+        failures.append(f"phase 18a reseeding: same seed equal {same}, other seed moved "
+                        f"{moved}, graphs {n_graphs}")
+    return {k: v[1] for k, v in res.items()}
+
+
+def graph_ids(run):
+    """The CUDA graphs an image runner (``make_conditioned_chain``) holds."""
+    return [id(s.graph) for r in run.runners.values() for s in r.chain.steps]
+
+
+def captured_runners(device, failures, smi, n_particles=100, seed=31):
+    """Phase 18b: phase 4's conditioned runner over its four scenes (at two
+    step counts: one capture serves both) and the tuned runner over two
+    candidates through one capture, each captured and eager."""
+    import numpy as np
+
+    from bayesianposeestimation.jl_tpu_torch.models.experiment_samplers import smc_mh
+    from bayesianposeestimation.jl_tpu_torch.models.fused import (
+        make_conditioned_chain,
+        make_tuned_chain,
+    )
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+    from bayesianposeestimation.jl_tpu_torch.utils import mesh_io
+
+    params = Parameters(n_particles=n_particles, time_budget=TIME_BUDGET,
+                        proposal_sigma_r=(0.5, 0.5, 0.5), device=str(device), n_steps=300)
+    scenes, mesh = occluded_scenes(device)
+    diameter = mesh_io.mesh_diameter(mesh)
+    images = [image_inputs(sc, params, diameter) for sc in scenes]
+    steps = (300, 300, 250, 250)
+    outs, metrics = {}, {}
+    for label, captured in (("eager", False), ("captured", True)):
+        import torch
+
+        run = make_conditioned_chain(params, mesh.vertices, mesh.faces, "association", smc_mh,
+                                     300, device=device, captured=captured)
+        run(seed + 1000, *images[0])  # warm-up: the capture
+        torch.cuda.synchronize()
+        ids = graph_ids(run)
+        walls = []
+        for k, (image, n) in enumerate(zip(images, steps)):
+            t0 = time.perf_counter()
+            outs[label, k] = run(seed + k, *image, n_steps=n)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        ms = [w / n * 1e3 for w, n in zip(walls, steps)]
+        metrics[label] = {"walls_s": walls, "ms_per_step": ms,
+                          "steps_per_budget": [int(TIME_BUDGET / (m * 1e-3)) for m in ms]}
+        if captured and graph_ids(run) != ids:
+            failures.append("phase 18b conditioned runner: captured again after the warm-up")
+        print(f"phase 18b conditioned runner {label} on {smi}: four scenes at {list(steps)} "
+              f"steps: walls {[round(w, 4) for w in walls]} s, ms per step "
+              f"{[round(m, 4) for m in ms]}, steps per {TIME_BUDGET} s at that pace "
+              f"{metrics[label]['steps_per_budget']}; graphs {len(graph_ids(run))}")
+    for k in range(len(images)):
+        compare_paths(f"18b conditioned runner scene {k} ({steps[k]} steps)",
+                      outs["eager", k], outs["captured", k], failures)
+
+    cands = {name: {k: s[k] for k in ("pixel_sigma", "association_sigma", "sigma_t",
+                                      "proposal_sigma_r")} for name, s in TUNED_SETS.items()}
+    tuned_in = {name: image_inputs(scenes[0], params, diameter,
+                                   (s["o_mask_is"], s["o_mask_not"]))
+                for name, s in TUNED_SETS.items()}
+    tuned_outs = {}
+    for label, captured in (("eager", False), ("captured", True)):
+        import torch
+
+        run = make_tuned_chain(params, mesh.vertices, mesh.faces, "association", smc_mh, 300,
+                               device=device, captured=captured)
+        ids = None
+        for name, hyper in cands.items():
+            t0 = time.perf_counter()
+            tuned_outs[label, name] = run(seed, *tuned_in[name], hyper)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if captured:
+                ids = ids or graph_ids(run)
+            print(f"phase 18b tuned runner {label}, candidate {name}: wall {wall:.4f} s "
+                  f"(the first call captures)")
+        if captured and graph_ids(run) != ids:
+            failures.append("phase 18b tuned runner: a second capture for the second candidate")
+    for name in cands:
+        compare_paths(f"18b tuned runner candidate {name}", tuned_outs["eager", name],
+                      tuned_outs["captured", name], failures)
+    a, b = (tuned_outs["captured", n][0]["log_like"] for n in cands)
+    if bool((a == b).all()):
+        failures.append("phase 18b tuned runner: both candidates gave the same chain")
+    return metrics
+
+
+def captured_filters(device, failures, smi, n_frames=TRACK_FRAMES, width=80, height=60):
+    """Phase 18c: both trackers on phase 6's stream (coordinate 600,
+    bootstrap 1250 particles) and the unfused coordinate filter (pf_prior +
+    simple_posterior), captured and eager."""
+    from bayesianposeestimation.jl_tpu_torch.models import experiment_models as em
+    from bayesianposeestimation.jl_tpu_torch.models.particle_filter import (
+        bootstrap_pf,
+        coordinate_pf,
+        fused_pf_posterior,
+    )
+
+    track = tracker_script()
+    stream, mesh = track.synthetic_stream(n_frames, width, height, device=device)
+    frames = n_frames - 1
+    metrics = {}
+    for kind, pf, posterior_fn, tag in (
+            ("coordinate", coordinate_pf, fused_pf_posterior("simple"), "coordinate"),
+            ("bootstrap", bootstrap_pf, fused_pf_posterior("simple"), "bootstrap"),
+            ("coordinate", coordinate_pf, em.simple_posterior, "unfused coordinate")):
+        params = track.filter_params(kind, width, height, None, device)
+        experiment, depth, _ = track.tracking_setup(stream, mesh, params, device)
+        res = {}
+        for label, captured in (("eager", False), ("captured", True)):
+            def run(seed, captured=captured):
+                return pf(seed, posterior_fn, params, experiment, depth, device=device,
+                          captured=captured)
+
+            res[label] = path_metrics(
+                f"18c {tag} filter {label} ({params.n_particles} particles, {frames} frames "
+                f"at {width}x{height})", run, frames, "frame", params.n_particles, smi)
+        compare_paths(f"18c {tag} filter", res["eager"][0], res["captured"][0], failures)
+        metrics[tag] = {k: v[1] for k, v in res.items()}
+    return metrics
+
+
+REPLAY_COUNT_FLAG = "--replay-kernel-count"
+# each replayed path of phase 18d and its render_score launches, 1 + k (units - 1)
+REPLAY_PATHS = {"flagship": 500, "coordinate": 1 + 2 * (TRACK_FRAMES - 1),
+                "bootstrap": TRACK_FRAMES}
+
+
+def replay_kernel_count(path, device="cuda"):
+    """Phase 18d's measurement of one path (``REPLAY_PATHS``: the flagship
+    chain, 100 particles x 500 steps, or a tracker on phase 6's stream) in a
+    process of its own (``python3 chip_smoke.py --replay-kernel-count
+    PATH``): run once to capture, then once more under torch.profiler, the
+    profiler's render_score kernels beside the counted launches and
+    evaluations of that run. The first profiler session of a fresh process
+    records every kernel; later sessions drop some now and then (PERF.md
+    §7). Prints one JSON line."""
+    sys.path.insert(0, str(REPO))
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+
+    if path == "flagship":
+        from bayesianposeestimation.jl_tpu_torch.models.experiment_samplers import smc_mh
+        from bayesianposeestimation.jl_tpu_torch.models.fused import fused_posterior
+        from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+        from bayesianposeestimation.jl_tpu_torch.samplers import sample_chain
+
+        params = Parameters(n_steps=500, n_particles=100, proposal_sigma_r=(0.5, 0.5, 0.5),
+                            device=device)
+        post = fused_posterior(params, bench_scene(device)[0], "association", device=device)
+        sampler = smc_mh(params, post)
+
+        def run(seed):
+            return sample_chain(seed, post, sampler, 500, 100, device=device)
+    else:
+        from bayesianposeestimation.jl_tpu_torch.models.particle_filter import (
+            bootstrap_pf,
+            coordinate_pf,
+            fused_pf_posterior,
+        )
+
+        track = tracker_script()
+        stream, mesh = track.synthetic_stream(TRACK_FRAMES, 80, 60, device=device)
+        pf = coordinate_pf if path == "coordinate" else bootstrap_pf
+        params = track.filter_params(path, 80, 60, None, device)
+        experiment, depth, _ = track.tracking_setup(stream, mesh, params, device)
+
+        def run(seed):
+            return pf(seed, fused_pf_posterior("simple"), params, experiment, depth,
+                      device=device)
+    run(1)  # the capture
+    l0 = render_score.launches
+    with EvaluationCount() as evals:
+        prof = profile_path(lambda: run(0), 1)
+    print(json.dumps({"profiler_kernels": prof["render_score_kernels"],
+                      "launches": render_score.launches - l0, "evaluations": evals.n,
+                      "graph_launches": prof["graph_launches"]}))
+    return 0
+
+
+def replay_count_phase(failures, attempts=2):
+    """Phase 18d: ``replay_kernel_count`` of each path in a process of its
+    own (a second process where the first's profiler session dropped
+    kernels), its profiler count held to its counters and to 1 + k (units -
+    1)."""
+    for path, expected in REPLAY_PATHS.items():
+        for attempt in range(1, attempts + 1):
+            try:
+                proc = subprocess.run(
+                    [sys.executable, str(REPO / "chip_smoke.py"), REPLAY_COUNT_FLAG, path],
+                    capture_output=True, text=True, timeout=300, cwd=REPO)
+                counts = json.loads(proc.stdout.strip().splitlines()[-1])
+            except (subprocess.TimeoutExpired, IndexError, ValueError) as e:
+                counts = {"profiler_kernels": f"no result ({type(e).__name__})",
+                          "launches": None, "evaluations": None}
+            if counts["profiler_kernels"] == counts["launches"] or attempt == attempts:
+                break
+            print(f"phase 18d {path}: process {attempt} of {attempts}: the profiler recorded "
+                  f"{counts['profiler_kernels']} of {counts['launches']} kernels")
+        kernel_count_gate(path, counts, expected, failures)
+
+
+def captured_phase(device, failures, smi):
+    """Phase 18: the chain, the per-image runners and both trackers captured
+    as CUDA graphs against the eager loop (``captured=False``), on the card.
+    Returns the metrics of each path, eager and captured."""
+    t0 = time.perf_counter()
+    out = {"flagship": captured_flagship(device, failures, smi)}
+    out["runners"] = captured_runners(device, failures, smi)
+    out["filters"] = captured_filters(device, failures, smi)
+    replay_count_phase(failures)
+    print(f"phase 18 summary: {json.dumps(out)}")
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "render_score.cu").is_file():
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -3607,6 +4105,8 @@ def main() -> int:
     forced_plan_check(track_args, "the tracking shape", dev, failures)
     forced_plan_check(flagship, "the bench shape", dev, failures)
     background_path_check(track_args, dev, failures)
+    camera_row_check(flagship, "the bench shape", dev, failures)
+    camera_row_check(track_args, "the tracking shape", dev, failures)
     no_size_limit_check(dev, failures, flagship[0], flagship[1], smi)
     for bad in ({"face_budget": 0}, {"pixel_budget": -1}, {"threads": 100},
                 {"face_slices": 0}):
@@ -3739,6 +4239,10 @@ def main() -> int:
     figure_rows = figures_phase(dev, failures, smi)
     phase_done(17)
 
+    # -- phase 18: the captured chains, runners and trackers against eager --------
+    captured_phase(dev, failures, smi)
+    phase_done(18)
+
     if failures:
         print(f"chip_smoke FAILED: {failures}", file=sys.stderr)
         return 1
@@ -3860,4 +4364,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(replay_kernel_count(sys.argv[2]) if sys.argv[1:2] == [REPLAY_COUNT_FLAG]
+             else main())

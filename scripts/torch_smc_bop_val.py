@@ -148,9 +148,9 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _timed(run, device, *args):
+def _timed(run, device, *args, **kw):
     t0 = time.perf_counter()
-    out = run(*args)
+    out = run(*args, **kw)
     _sync(device)
     return out, time.perf_counter() - t0
 
@@ -169,7 +169,9 @@ def scene_inference(config, bop_dir, parameters, device="cuda", fixed_steps=Fals
     runs, then each timed run, the next run's count is the budget's at the
     mean pace (``realized_step_time``) of the object's last three runs,
     never above the calibrated count. A run is never cut short: its steps
-    are fixed when it starts."""
+    are fixed when it starts. One chain runner per object serves every step
+    count, so its steps are captured once, by the warm-up, before any run
+    is timed."""
     from bayesianposeestimation.jl_tpu_torch.models import experiment_samplers as es
     from bayesianposeestimation.jl_tpu_torch.models.fused import (
         fused_posterior,
@@ -205,15 +207,15 @@ def scene_inference(config, bop_dir, parameters, device="cuda", fixed_steps=Fals
     first_steps = first_step_time = None
     calibration = {}
     objects, meshes = {}, {}  # per object: its calibration and paces; its mesh
-    runners = {}  # per (object, step count): its chain runner
+    runners = {}  # per object: its chain runner, which takes each run's step count
 
     def runner(obj_key, n):
-        if (obj_key, n) not in runners:
+        if obj_key not in runners:
             mesh = meshes[obj_key[0]]
-            runners[obj_key, n] = make_conditioned_chain(
+            runners[obj_key] = make_conditioned_chain(
                 parameters.replace(n_steps=n), mesh.vertices, mesh.faces, variant,
                 sampler_factory, n, n_chains=n_chains, device=device)
-        return runners[obj_key, n]
+        return runners[obj_key]
 
     for i, row in enumerate(rows_in):
         args = image_inputs(row, parameters, prior_mode, o_mode, noise_rng)
@@ -239,12 +241,13 @@ def scene_inference(config, bop_dir, parameters, device="cuda", fixed_steps=Fals
                 n_cal = _quantize_steps(steps_for_time_budget(step_time, budget,
                                                               overhead=overhead))
             obj = dict(n_cal=n_cal, n=n_cal, overhead=overhead, paces=[])
-            _timed(runner(obj_key, n_cal), device, seed + 10**6, *args)  # warm-up
+            _timed(runner(obj_key, n_cal), device, seed + 10**6, *args, n_steps=n_cal)  # warm-up
             if not fixed_steps:
                 # probe runs: the pace the real runner realizes, per-run
                 # costs included, sets the first timed run's count
                 for k in range(1, 4):
-                    wall = _timed(runner(obj_key, n_cal), device, seed + 10**6 + k, *args)[1]
+                    wall = _timed(runner(obj_key, n_cal), device, seed + 10**6 + k, *args,
+                                  n_steps=n_cal)[1]
                     obj["n"] = _paced_steps(obj, realized_step_time(wall, n_cal, overhead),
                                             budget)
             print(f"  obj {obj_key[0]} step time {step_time * 1e3:.3f} ms "
@@ -257,7 +260,8 @@ def scene_inference(config, bop_dir, parameters, device="cuda", fixed_steps=Fals
 
         obj = objects[obj_key]
         n_run = obj["n"]
-        (outs, _), wall = _timed(runner(obj_key, n_run), device, seed + i, *args)
+        (outs, _), wall = _timed(runner(obj_key, n_run), device, seed + i, *args,
+                                 n_steps=n_run)
         if not fixed_steps:
             obj["n"] = _paced_steps(obj, realized_step_time(wall, n_run, obj["overhead"]),
                                     budget)

@@ -160,6 +160,14 @@ def build_scene_runner(scene_id, args, parameters, testset=None, device="cuda"):
             runners[obj_key] = (make_tuned_chain(
                 parameters.replace(n_steps=n_steps), mesh.vertices, mesh.faces, "association",
                 sampler_factory, n_steps, n_chains=n_chains, device=device), n_steps)
+            # warm-up at the parameters' own values: the runner captures its
+            # steps here, before any trial is timed
+            runners[obj_key][0](
+                seed0 + 10**6, cam, obs,
+                np.where(mask_crop, parameters.o_mask_is, parameters.o_mask_not).astype(
+                    np.float32), np.asarray(prior_t, np.float32),
+                {k: getattr(parameters, k) for k in ("pixel_sigma", "association_sigma",
+                                                     "sigma_t", "proposal_sigma_r")})
             calibration[str(obj_id)] = dict(n_steps=int(n_steps), step_time=float(step_time))
         items.append(dict(row=row, cam=cam, obs=obs, mask_crop=mask_crop,
                           prior_t=np.asarray(prior_t, np.float32), obj_key=obj_key))

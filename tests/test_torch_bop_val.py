@@ -46,8 +46,8 @@ def _recording(module, monkeypatch):
     def make(*args, **kwargs):
         run = inner(*args, **kwargs)
 
-        def recorded(seed, cam, obs, prior_o, prior_t, *rest):
-            out = run(seed, cam, obs, prior_o, prior_t, *rest)
+        def recorded(seed, cam, obs, prior_o, prior_t, *rest, **kw):
+            out = run(seed, cam, obs, prior_o, prior_t, *rest, **kw)
             calls.append((cam, np.asarray(obs), np.asarray(prior_o), np.asarray(prior_t), out))
             return out
 

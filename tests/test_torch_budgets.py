@@ -84,17 +84,16 @@ def _simulate(monkeypatch, pace_of_run):
     runs = []
 
     def make(params, verts, faces, variant, factory, n_steps, **kw):
-        def run(seed, cam, obs, prior_o, prior_t):
+        def run(seed, cam, obs, prior_o, prior_t, n_steps=n_steps):
             runs.append(n_steps)
             shape = (n_steps, kw.get("n_chains", 1))
             return ({"t": torch.zeros(*shape, 3), "r": torch.tensor([1.0, 0, 0, 0]).expand(
                 *shape, 4), "log_like": torch.zeros(shape)}, None)
-        run.n_steps = n_steps
         return run
 
-    def timed(run, device, *args):
-        out = run(*args)
-        return out, OVERHEAD + run.n_steps * pace_of_run(len(runs) - 1)
+    def timed(run, device, *args, **kw):
+        out = run(*args, **kw)
+        return out, OVERHEAD + runs[-1] * pace_of_run(len(runs) - 1)
 
     monkeypatch.setattr(fused, "make_conditioned_chain", make)
     monkeypatch.setattr(ev, "mean_step_time", lambda *a, **kw: (STEP_TIME, OVERHEAD))

@@ -352,12 +352,16 @@ def test_pf_likelihood_matches_and_is_rotation_sensitive(rng):
 def test_with_observation_swaps_only_the_observation(rng):
     _, (tparams, texp), _ = _scene(rng)
     post = TPF.fused_pf_posterior("simple")(tparams, texp, device="cpu")
+    s = _tsample(_pf_values(rng))
+    a = post.logdensity_sample(s)
+    depth, verts, graph = post.depth, post.verts, post.graph
     other_obs = torch.full((24, 32), torch.inf)
     other = post.with_observation(other_obs)
-    assert other.depth is other_obs and post.depth is not other_obs
-    assert other.verts is post.verts and other.graph is post.graph
-    s = _tsample(_pf_values(rng))
-    a, b = post.logdensity_sample(s), other.logdensity_sample(s)
+    # written in place into the buffer a captured step reads
+    assert other is post and post.depth is depth and post.depth is not other_obs
+    assert torch.equal(post.depth, other_obs)
+    assert post.verts is verts and post.graph is graph
+    b = other.logdensity_sample(s)
     assert bool(torch.isfinite(b.log_like).all())  # every pixel invalid: the tail only
     assert float((a.log_like - b.log_like).abs().max()) > 0.1
     assert len(set(b.log_like.tolist())) == 1
