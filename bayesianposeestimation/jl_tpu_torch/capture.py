@@ -17,60 +17,27 @@ device generator is registered with every graph, so each replay draws at the
 generator's current Philox offset and advances it as the eager step would.
 A captured chain therefore draws what the eager chain draws.
 
-Kernel launches and likelihood evaluations are counted through ``count``:
-while a graph is captured the counts are recorded, not reported, and every
-replay reports what its capture recorded (``add_listener`` receives them).
+Kernel launches and likelihood evaluations are counted through
+``telemetry.count``: while a graph is captured the counts are recorded, not
+reported, and every replay reports what its capture recorded. While
+telemetry is on, a run is timed in spans (``runner.run``, ``runner.start``,
+``runner.advance``, ``runner.gather``; ``runner.capture`` around a branch's
+eager first step and capture) and ``advance`` reports, once per call, its
+steps, the picks by branch and the host nanoseconds of the pick, the replay
+call, the tally's re-report, ``before_step`` and the chunk copies.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import dataclasses
 
 import torch
 
+from . import telemetry
 from .rngs import Rngs
+from .telemetry import count, recording, span
 
-__all__ = ["count", "add_listener", "remove_listener", "recording", "ChainRunner",
-           "StepGraph", "tree_leaves", "clone_tree", "copy_tree"]
-
-# -- counts a replay reports again --------------------------------------------
-
-_LISTENERS = []
-_RECORDING = []
-
-
-def count(key, n=1):
-    """Report ``n`` events of ``key`` (a kernel launch, a likelihood
-    evaluation) to the listeners, or, while a graph is captured, record them
-    for its replays."""
-    if _RECORDING:
-        _RECORDING[-1][key] += n
-        return
-    for fn in tuple(_LISTENERS):
-        fn(key, n)
-
-
-def add_listener(fn):
-    """Call ``fn(key, n)`` for every reported event."""
-    _LISTENERS.append(fn)
-
-
-def remove_listener(fn):
-    _LISTENERS.remove(fn)
-
-
-@contextlib.contextmanager
-def recording():
-    """Record the events reported inside, instead of reporting them: a
-    ``Counter`` of what a capture will launch on each replay."""
-    tally = collections.Counter()
-    _RECORDING.append(tally)
-    try:
-        yield tally
-    finally:
-        _RECORDING.pop()
+__all__ = ["ChainRunner", "StepGraph", "tree_leaves", "clone_tree", "copy_tree"]
 
 
 # -- static state -------------------------------------------------------------
@@ -179,13 +146,22 @@ class StepGraph:
             self.fn()
         self.graph, self.tally = graph, dict(tally)
 
-    def __call__(self):
+    def __call__(self, laps=None):
+        """One step. ``laps`` (``telemetry.Laps``, started at the replay by
+        the caller), where given, moves to ``report`` after the replay and
+        counts a first call's eager step and capture in no part."""
         if not self.captured:
             self.fn()
         elif self.graph is None:
-            self.capture()
+            if laps is not None:
+                laps(None)
+            with span("runner.capture"):
+                count(("graph", "captures"))
+                self.capture()
         else:
             self.graph.replay()
+            if laps is not None:
+                laps("report")
             for key, n in self.tally.items():
                 count(key, n)
 
@@ -278,29 +254,55 @@ class ChainRunner:
 
     def advance(self, n, before_step=None):
         """``n`` steps from the static state; returns the chunks of their
-        collected outputs."""
+        collected outputs. While telemetry is on (read once per call) the
+        loop's host time is split by part (``telemetry.Laps``; under the
+        profiler the ranges ``bpe.step.feed``, ``.pick``, ``.replay``,
+        ``.report``, ``.chunk``) and reported once, with the steps and the
+        picks by branch, through ``count``."""
+        laps = telemetry.Laps("bpe.step.") if telemetry.ON else None
+        picks = [0] * len(self.steps)
         parts = []
         for i in range(n):
             if before_step is not None:
+                if laps is not None:
+                    laps("feed")
                 before_step(i)
+            if laps is not None:
+                laps("pick")
             b = 0 if self.pick is None else self.pick(self.rngs)
-            self.steps[b]()
+            if laps is not None:
+                picks[b] += 1
+                laps("replay")
+            self.steps[b](laps)
             if (i + 1) % self.CHUNK == 0 or i + 1 == n:
+                if laps is not None:
+                    laps("chunk")
                 rows = i % self.CHUNK + 1
                 parts.append({k: c[:rows].clone() for k, c in self.chunk.items()})
+        if laps is not None:
+            laps(None)
+            count(("runner", "steps"), n)
+            for b, k in enumerate(picks):
+                count(("runner", "picks", b), k)
+            for part in ("pick", "replay", "report", "feed", "chunk"):
+                count(("runner", f"{part}_ns"), laps.ns[part])
         return parts
 
     def run(self, seed, n_steps, collect_every=1, n_burn_in=0, before_step=None):
         """(collected, final state) of init + ``n_steps - 1`` steps, as
         ``sample_chain`` returns them; the final state is a copy."""
-        self.start(seed)
-        parts = self.advance(n_steps - 1, before_step=before_step)
-        if not parts:
-            return {}, clone_tree(self.state)
-        outs = {k: torch.cat([p[k] for p in parts])[n_burn_in::collect_every]
-                for k in parts[0]}
-        if next(iter(outs.values())).shape[0] == 0:
-            outs = {}
-        elif collect_every > 1:
-            outs = {k: v.contiguous() for k, v in outs.items()}
-        return outs, clone_tree(self.state)
+        with span("runner.run"):
+            with span("runner.start"):
+                self.start(seed)
+            with span("runner.advance"):
+                parts = self.advance(n_steps - 1, before_step=before_step)
+            with span("runner.gather"):
+                if not parts:
+                    return {}, clone_tree(self.state)
+                outs = {k: torch.cat([p[k] for p in parts])[n_burn_in::collect_every]
+                        for k in parts[0]}
+                if next(iter(outs.values())).shape[0] == 0:
+                    outs = {}
+                elif collect_every > 1:
+                    outs = {k: v.contiguous() for k, v in outs.items()}
+                return outs, clone_tree(self.state)

@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..capture import ChainRunner, count
+from ..capture import ChainRunner
 from ..convert import image_from_numpy
 from ..devices import resolve_device
 from ..distributions import Normal, QuaternionUniform
@@ -44,6 +44,7 @@ from ..parameters import Experiment, sigma_row
 from ..posterior import tempered_logdensity
 from ..samplers.chain import sample_chain
 from ..samples import Sample
+from ..telemetry import count, span
 from ..tempering import StepCount
 
 __all__ = ["make_score_fn", "make_hyper_score_fn", "FusedPosterior",
@@ -230,7 +231,9 @@ class _ImageRunner:
     """One mesh's chain on per-image inputs in static device buffers: the
     posterior and sampler are built once, at the first call, and each call
     copies its inputs in and runs the captured chain (``tuned``: the
-    likelihood sigmas, sigma_t and proposal_sigma_r come from the call)."""
+    likelihood sigmas, sigma_t and proposal_sigma_r come from the call).
+    While telemetry is on, a call is the span ``image.call``, the copy-in
+    ``image.load`` and the first call's build ``image.build``."""
 
     def __init__(self, params, verts_t, faces_t, variant, sampler_factory, n_steps,
                  collect_vars, n_chains, device, tuned):
@@ -272,7 +275,8 @@ class _ImageRunner:
             raise ValueError(f"the camera is {camera.width}x{camera.height}, the runner "
                              f"renders {w}x{h}")
         if self.posterior is None:
-            self._build(camera)
+            with span("image.build"):
+                self._build(camera)
         post = self.posterior
         post.camera = camera  # the kernel reads the row; the host copy is for the reader
         host = {"camera": camera_row(camera),
@@ -292,9 +296,11 @@ class _ImageRunner:
                                .expand(h, w))
 
     def __call__(self, seed, camera, depth_img, prior_o, prior_t, hyper=None, n_steps=None):
-        self._load(camera, depth_img, prior_o, prior_t, hyper)
-        self.step_count.set(self.params.n_steps if n_steps is None else n_steps)
-        return self.chain.run(seed, self.n_steps if n_steps is None else int(n_steps))
+        with span("image.call"):
+            with span("image.load"):
+                self._load(camera, depth_img, prior_o, prior_t, hyper)
+            self.step_count.set(self.params.n_steps if n_steps is None else n_steps)
+            return self.chain.run(seed, self.n_steps if n_steps is None else int(n_steps))
 
 
 def _eager_image_chain(params, verts_t, faces_t, variant, sampler_factory, n_steps,

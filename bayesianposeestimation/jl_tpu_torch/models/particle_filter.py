@@ -54,6 +54,7 @@ from ..samplers import (
     collect_variables,
 )
 from ..samples import Sample
+from ..telemetry import span
 from ..tempering import ConstantSchedule
 from .fused import fused_posterior
 
@@ -279,7 +280,9 @@ def _run_pf(seed, posterior_fn, params, experiment, depth_imgs, kind, collect_va
 
     ``depth_imgs``: [F, H, W] at render size — a float32 tensor on ``device``
     with invalid pixels +inf (``convert.stream_from_numpy``), or a host array
-    with invalid pixels <= 0, which is uploaded and converted once."""
+    with invalid pixels <= 0, which is uploaded and converted once. While
+    telemetry is on, a captured run is the span ``pf.run``, with the cached
+    filter's lookup or build ``pf.runner`` inside."""
     dev = resolve_device(device)
     if not isinstance(depth_imgs, torch.Tensor):
         depth_imgs = stream_from_numpy(depth_imgs, dev)
@@ -287,11 +290,13 @@ def _run_pf(seed, posterior_fn, params, experiment, depth_imgs, kind, collect_va
         raise ValueError(f"depth_imgs is on {depth_imgs.device}, filter asked for {dev}")
     depth_imgs = depth_imgs.to(torch.float32).contiguous()
     if captured:
-        runner, feed = _pf_runner(posterior_fn, params, experiment, depth_imgs[0], kind,
-                                  collect_vars, dev)
-        feed(depth_imgs[0])
-        return runner.run(seed, depth_imgs.shape[0],
-                          before_step=lambda i: feed(depth_imgs[i + 1]))
+        with span("pf.run"):
+            with span("pf.runner"):
+                runner, feed = _pf_runner(posterior_fn, params, experiment, depth_imgs[0],
+                                          kind, collect_vars, dev)
+            feed(depth_imgs[0])
+            return runner.run(seed, depth_imgs.shape[0],
+                              before_step=lambda i: feed(depth_imgs[i + 1]))
     sampler = _pf_samplers(params, kind, dev)
     rngs = Rngs.from_seed(seed, dev)
     if getattr(posterior_fn, "fused", False):

@@ -26,12 +26,14 @@ kernel reads at run time (the counterpart of the Pallas kernels' ``cam_ref``),
 so a captured chain serves every crop camera of one image size. The plain
 versions take the same row.
 
-A launch is counted through ``capture.count``, so the launches a captured
+A launch is counted through ``telemetry.count``, so the launches a captured
 CUDA graph makes are counted again on every replay.
 
 The kernel library is compiled with ``nvcc`` from the package's own source at
 the first CUDA launch, into ``_build/`` beside the package, and loaded with
-``ctypes`` (plain C entry point, no PyTorch headers).
+``ctypes`` (plain C entry point, no PyTorch headers). The build is the span
+``library.build`` and counts ``("library", "compiled")`` or ``("library",
+"loaded")``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import capture
+from .. import telemetry
 from ..camera import CvCamera
 from ..devices import check_on_device, resolve_device
 
@@ -463,8 +465,9 @@ def _compile(source: Path, extra_flags=()):
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _BUILD_DIR / f"lib{source.stem}_{tag}.so"
-    log = ""
-    if not out.exists():
+    log, built = "", out.exists()
+    telemetry.count(("library", "loaded" if built else "compiled"))
+    if not built:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(source)],
                               capture_output=True, text=True, check=False)
@@ -483,7 +486,8 @@ def build_library(phase_clocks=False):
     the cycles of each of its phases to a device array that
     ``bpe_phase_clocks(out, reset)`` reads), a measuring aid that the
     wrappers never load."""
-    lib, log = _compile(_SOURCE, ("-DBPE_PHASE_CLOCKS",) if phase_clocks else ())
+    with telemetry.span("library.build"):
+        lib, log = _compile(_SOURCE, ("-DBPE_PHASE_CLOCKS",) if phase_clocks else ())
     if phase_clocks:
         lib.bpe_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.bpe_phase_clocks.restype = ctypes.c_int
@@ -630,7 +634,7 @@ def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_depth kernel launch failed: cudaError {err}")
-    capture.count(("render_depth", None))
+    telemetry.count(("render_depth", None))
     return mu
 
 
@@ -711,7 +715,7 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
             None if background is None else background.data_ptr(), *plan, stream)
     if err != 0:
         raise RuntimeError(f"render_score kernel launch failed: cudaError {err}")
-    capture.count(("render_score", _kernel_name(variant, hyper, return_mu)))
+    telemetry.count(("render_score", _kernel_name(variant, hyper, return_mu)))
     return out
 
 
@@ -720,7 +724,7 @@ render_score.launches_by = collections.Counter()
 
 
 def _count_launch(key, n):
-    """Add reported launches (``capture.count``) to the wrappers' counters."""
+    """Add reported launches (``telemetry.count``) to the wrappers' counters."""
     if not isinstance(key, tuple) or len(key) != 2:
         return
     kernel, name = key
@@ -731,4 +735,4 @@ def _count_launch(key, n):
         render_depth.launches += n
 
 
-capture.add_listener(_count_launch)
+telemetry.add_listener(_count_launch)

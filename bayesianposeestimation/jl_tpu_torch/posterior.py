@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import torch
 
-from .capture import count
 from .devices import resolve_device
 from .graph import (
     BroadcastedNode,
@@ -31,6 +30,7 @@ from .graph import (
     sequentialize,
 )
 from .samples import Sample, to_model_domain, to_unconstrained_domain
+from .telemetry import count
 
 __all__ = ["PosteriorModel", "tempered_logdensity", "retemper"]
 

@@ -81,7 +81,7 @@ class EvaluationCount:
     """Counts likelihood evaluations of fused (``FusedPosterior``) and graph
     (``PosteriorModel``) posteriors on one device type (default the card's:
     re-evaluations by the plain version on the CPU are not counted) while in
-    use. Each evaluation reports itself through ``capture.count``, so a
+    use. Each evaluation reports itself through ``telemetry.count``, so a
     replayed CUDA graph counts the evaluations its capture recorded."""
 
     def __init__(self, device_type="cuda"):
@@ -92,16 +92,16 @@ class EvaluationCount:
             self.n += n
 
     def __enter__(self):
-        from bayesianposeestimation.jl_tpu_torch import capture
+        from bayesianposeestimation.jl_tpu_torch import telemetry
 
         self.n = 0
-        capture.add_listener(self._count)
+        telemetry.add_listener(self._count)
         return self
 
     def __exit__(self, *exc):
-        from bayesianposeestimation.jl_tpu_torch import capture
+        from bayesianposeestimation.jl_tpu_torch import telemetry
 
-        capture.remove_listener(self._count)
+        telemetry.remove_listener(self._count)
 
 
 def run_chain(device, n_steps=500, n_particles=100, seed=1, trials=1):

@@ -5,6 +5,7 @@
     python3 chip_profile.py tracking   # the particle filters
     python3 chip_profile.py kernels    # both of the above, then the kernel alone
     python3 chip_profile.py evaluation # the BOP evaluation with and without the depth split
+    python3 chip_profile.py telemetry <cell> <seed> [seconds]  # a benchmark cell, telemetry on
 
 The benchmark chain is bench.py's configuration through the port
 (bench_torch.run_chain: monkey mesh, 30x30, 100 particles, tempered SMC-MH,
@@ -36,8 +37,14 @@ first, and last replays each row from a CUDA graph of 50 launches: the time per
 launch once the host's pacing (the Python wrapper, ~0.07-0.1 ms a call) is
 out of the way. Between the two, ``render_depth``'s face slices are swept
 (device time for forced slice counts beside the automatic plan's, its phase
-clocks, and how evenly its slices share the raster's big boxes). Needs a
-CUDA device.
+clocks, and how evenly its slices share the raster's big boxes).
+``telemetry`` runs one cell of the benchmark (``portbench/``) as its
+untraced runs do, with the port's telemetry on from before the set-up to the
+end of the window, and prints the cell's end-to-end metrics beside the host
+loop's split: µs a step outside and inside the graph replay call, the parts
+of a step, the mean spans of a request, the set-up's captures; it stands in
+until the benchmark's own readers compute these numbers, and goes then. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -70,6 +77,10 @@ def profiled(fn):
     host = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            # a named range's shadow on the device's timeline (the port's
+            # ``bpe.`` spans and step phases) is no kernel and no busy time
+            if getattr(e, "is_user_annotation", False) or e.name.startswith("bpe."):
+                continue
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
         elif e.name in chip_smoke.HOST_LAUNCH_CALLS:
@@ -182,13 +193,13 @@ def graph_ms(fn, n=50, reps=20):
     events. None (with the reason printed) if the capture fails."""
     import torch
 
-    from bayesianposeestimation.jl_tpu_torch import capture
+    from bayesianposeestimation.jl_tpu_torch import telemetry
 
     try:
         fn()
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with capture.recording(), torch.cuda.graph(graph):  # the capture launches nothing
+        with telemetry.recording(), torch.cuda.graph(graph):  # the capture launches nothing
             for _ in range(n):
                 fn()
         graph.replay()
@@ -470,7 +481,92 @@ def evaluation_turns(card):
                       "card": card, "turns": turns}))
 
 
+ROOTS = ("image.call", "pf.run")  # the port's request roots
+
+
+def _span_totals(spans):
+    """{name: [spans, total s, self s]} of the closed spans."""
+    out = {}
+    for sp in spans:
+        if sp["end_ns"] is not None:
+            row = out.setdefault(sp["name"], [0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += (sp["end_ns"] - sp["start_ns"]) * 1e-9
+            row[2] += sp["self_ns"] * 1e-9
+    return out
+
+
+def telemetry_numbers(setup, window):
+    """The host loop's split from two telemetry snapshots, the set-up's and
+    the window's: µs a step (a tracked frame) outside the replay call
+    (``runner.advance`` less the replay nanoseconds) and inside it, each
+    counted part of a step and their share of the loop, mean spans of a
+    request in ms, and the set-up's span totals (s) and capture self time."""
+    counts, spans = window["counts"], _span_totals(window["spans"])
+    steps = counts[("runner", "steps")]
+    requests = sum(1 for sp in window["spans"] if sp["parent"] == -1 and sp["name"] in ROOTS)
+    advance_ns = spans.get("runner.advance", [0, 0.0, 0.0])[1] * 1e9
+    parts = {k: counts[("runner", f"{k}_ns")] for k in ("pick", "replay", "report", "feed", "chunk")}
+    setup_spans = _span_totals(setup["spans"])
+    return {
+        "requests": requests, "steps": steps,
+        "runner_host_us": (advance_ns - parts["replay"]) / steps * 1e-3 if steps else None,
+        "replay_call_us": parts["replay"] / steps * 1e-3 if steps else None,
+        "parts_us": {k: v / steps * 1e-3 for k, v in parts.items()} if steps else {},
+        "parts_share_of_loop": sum(parts.values()) / advance_ns if advance_ns else None,
+        "picks": {k[2]: v for k, v in counts.items() if k[:2] == ("runner", "picks")},
+        "request_ms": {k: v[1] / requests * 1e3 for k, v in spans.items()} if requests else {},
+        "setup_s": setup_spans,
+        "setup_capture_s": setup_spans.get("runner.capture", [0, 0.0, 0.0])[2],
+        "setup_counts": {"/".join(k): v for k, v in setup["counts"].items()
+                         if k[0] in ("graph", "library")},
+        "dropped": setup["dropped"] + window["dropped"],
+    }
+
+
+def telemetry_cell(name, seed, seconds, device="cuda", cell=None, config=None):
+    """One benchmark cell served as its untraced runs serve it, with the
+    port's telemetry on from before the set-up to the end of the window (the
+    set-up's spans taken apart by a snapshot after ``Entry.setup``): the
+    cell's end-to-end metrics, ``correct`` and ``telemetry_numbers``.
+    ``cell`` / ``config`` in place of the cell files' (a test size)."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import telemetry
+    from portbench import cells
+    from portbench.run import run_cell
+
+    if cell is None:
+        cell, config = cells.load(name)
+    entry = cells.entry_module(config).Entry
+    setup, snaps = entry.setup, {}
+
+    def setup_then_snapshot(self):
+        setup(self)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        snaps["setup"] = telemetry.snapshot()
+        telemetry.reset()
+
+    entry.setup = setup_then_snapshot
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        result, _, _ = run_cell(cell, config, seed, seconds, False, device)
+        window = telemetry.snapshot()  # the check after the window calls nothing of the port
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+        entry.setup = setup
+    return {"cell": name, "seed": seed, "correct": result["correct"],
+            "failed": result["failed"], "attempted": result["attempted"],
+            "metrics": {k: v["value"] for k, v in result["metrics"].items()},
+            "telemetry": telemetry_numbers(snaps["setup"], window)}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["telemetry"]:
+        import portbench.run  # noqa: F401  (the harness's thread settings, set before torch's import)
     import torch
 
     if not torch.cuda.is_available():
@@ -494,6 +590,10 @@ def main() -> int:
         kernel_rows(card, graphs=True)
     elif sys.argv[1:] == ["evaluation"]:
         evaluation_turns(card)
+    elif sys.argv[1:2] == ["telemetry"] and len(sys.argv) in (4, 5):
+        seconds = float(sys.argv[4]) if len(sys.argv) == 5 else 35.0
+        out = telemetry_cell(sys.argv[2], int(sys.argv[3]) % 2**63, seconds)
+        print(json.dumps({"card": card, **out}))
     elif not sys.argv[1:]:
         profile_chain(card)
     else:

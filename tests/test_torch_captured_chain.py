@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import bench_torch
-from bayesianposeestimation.jl_tpu_torch import capture, convert
+from bayesianposeestimation.jl_tpu_torch import capture, convert, telemetry
 from bayesianposeestimation.jl_tpu_torch.models import experiment_samplers as TES
 from bayesianposeestimation.jl_tpu_torch.models.fused import fused_posterior
 from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
@@ -183,7 +183,7 @@ class _FakeStepGraph(capture.StepGraph):
 
     def capture(self):
         self.fn()
-        with capture.recording() as tally:
+        with telemetry.recording() as tally:
             self.fn()
         self.graph, self.tally = _FakeGraph(), dict(tally)
 
@@ -196,7 +196,7 @@ def test_counters_are_replay_accounted(posterior, monkeypatch):
     reference = cuda_raster.render_score_reference
 
     def launching(*a, **kw):
-        capture.count(("render_score", "association"))
+        telemetry.count(("render_score", "association"))
         return reference(*a, **kw)
 
     monkeypatch.setattr(cuda_raster, "render_score_reference", launching)
@@ -226,17 +226,17 @@ def test_recording_nests_and_listeners_detach():
     def listen(key, n):
         seen.append((key, n))
 
-    capture.add_listener(listen)
+    telemetry.add_listener(listen)
     try:
-        capture.count("a")
-        with capture.recording() as outer:
-            capture.count("b", 2)
-            with capture.recording() as inner:
-                capture.count("c")
-        capture.count("d")
+        telemetry.count("a")
+        with telemetry.recording() as outer:
+            telemetry.count("b", 2)
+            with telemetry.recording() as inner:
+                telemetry.count("c")
+        telemetry.count("d")
     finally:
-        capture.remove_listener(listen)
-    capture.count("e")
+        telemetry.remove_listener(listen)
+    telemetry.count("e")
     assert seen == [("a", 1), ("d", 1)]
     assert dict(outer) == {"b": 2} and dict(inner) == {"c": 1}
 
