@@ -85,6 +85,20 @@
 //     can force small ones so that these paths are tested;
 //   * threads per block are the host's choice (512 where the poses are fewer
 //     than two per SM, else 256), so few poses still spread their set-up.
+//   * several pose blocks an SM where the faces take chunks: a block's
+//     set-up, barriers and raster are latency chains (dependent IEEE
+//     divisions, shared-memory atomics, two barriers a chunk), which one
+//     block of 8 warps alone on an SM cannot hide. So where a score launch's
+//     poses outnumber the SMs, launch_plan shrinks the face chunk until
+//     ceil(N / 132) blocks share an SM (at most 4 of 256 threads, which 64
+//     registers a thread allow, with a chunk of half the block's threads or
+//     more): at 20,000 faces and 100x100, 252 faces a chunk and 4 blocks an
+//     SM in place of 2,194 and 1 (launch_plan's "resident" path). The score
+//     kernels take 54-61 registers; chip_smoke.py's phase 2 holds the plan's
+//     blocks an SM to the runtime's count (bpe_score_occupancy) for each.
+//     The kernel is unchanged: a chunk is a chunk, and the image and the
+//     sums do not depend on its size. Below one pose an SM the larger chunk
+//     is kept: one block an SM either way, and more chunks cost barriers.
 //   * a few poses of a large mesh (the BOP evaluation: 2-5 poses of
 //     81,920-128,000 faces at 100x100) would leave most SMs idle and walk
 //     dozens of face chunks in turn, so the depth-only kernel splits each
@@ -136,16 +150,24 @@
 // 4.2 % of those bounds, 6-7 times the speed of the all-pixels loop this
 // design replaced; the depth-only kernel at the BOP evaluation's shape
 // (81,920 faces, 3 poses, 100x100) 0.022-0.025 ms split into 88 face slices
-// against 0.34-0.58 ms with one block per pose.
+// against 0.34-0.58 ms with one block per pose; at the res100 benchmark
+// cell's shape (20,000 faces, 100x100, 1,000 poses, association) 0.87 ms
+// with 4 blocks an SM against 1.86 ms with one, 4.3 % and 2.0 % of the bound.
 //
 // What is left on the table. At the tracking shape half of the blocks'
 // cycles are the score epilogue (about 300 operations a covered pixel:
 // accurate logf, expf, log1pf and IEEE division, FMA contraction off) and a
 // third the raster; at the bench shape the 100 blocks are one latency chain
-// each (vertices, faces, raster, epilogue in about 13 us) on 100 of 132 SMs.
-// Open: FMA contraction (needs proof that it flips no pixel), an epilogue
-// that shares its logarithms between pixels of equal prior, a pose split
-// over a thread-block cluster at few poses, 16-byte loads of z and prior.
+// each (vertices, faces, raster, epilogue in about 13 us) on 100 of 132 SMs;
+// at the res100 shape the face set-up takes 53 % of the cycles (about 250
+// instructions a face, four IEEE divisions), the raster 38 %, most of it the
+// whole-image boxes of 3-4 slivers a pose, walked by the whole block. A
+// warp-local form (each warp rasters its own faces' boxes at once, no face
+// chunk in shared memory) was measured no faster than smaller chunks.
+// Open: tighter boxes for slivers, FMA contraction (needs proof that it
+// flips no pixel), an epilogue that shares its logarithms between pixels of
+// equal prior, a pose split over a thread-block cluster at few poses, 16-byte
+// loads of z and prior.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -225,7 +247,7 @@ struct Pose {
 enum Phase : int {
   kPhaseVertices = 0,  // pose, vertex projection, tile zeroing
   kPhaseFaces = 1,     // forms, culls, boxes, compaction
-  kPhaseRaster = 2,
+  kPhaseRaster = 2,    // every chunk's, up to the barrier after it
   kPhaseEpilogue = 3,
   kPhases = 4,
 };
@@ -552,7 +574,9 @@ render_score_kernel(const float* __restrict__ verts, int n_verts,
         if (!forms_ready) {
           // set-up, part 2: forms, culls and box of each face of the chunk
           __syncthreads();  // vertices projected; the chunk before is done
-          BPE_PHASE_END(kPhaseVertices)
+          // a tile's first chunk follows the vertices or the tile's zeroing,
+          // a later one the chunk before's raster
+          BPE_PHASE_END(f0 == f_first ? kPhaseVertices : kPhaseRaster)
           if (tid == 0) {
             s_small = 0;
             s_big = 0;
@@ -867,6 +891,27 @@ cudaError_t launch(const float* verts, int n_verts, const int* faces,
   return cudaGetLastError();
 }
 
+// Blocks of the score kernel for epilogue E (kMu: the form that writes the
+// image) that one SM holds at once with `threads` threads and `smem` bytes of
+// dynamic shared memory, as the CUDA runtime counts them. The kernel's limit
+// of dynamic shared memory is raised to `smem` where it is lower, never
+// lowered.
+template <int E, bool kMu>
+cudaError_t occupancy(int threads, size_t smem, int* blocks) {
+  if (smem + kSmemStatic > kSmemLimit) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, render_score_kernel<E, kMu>);
+  if (err != cudaSuccess) return err;
+  if ((int)smem > attr.maxDynamicSharedSizeBytes) {
+    err = cudaFuncSetAttribute(render_score_kernel<E, kMu>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, render_score_kernel<E, kMu>, threads, smem);
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, allocates
@@ -934,6 +979,28 @@ extern "C" int bpe_render_depth(
       verts, n_verts, faces, n_faces, t, q, n_poses, nullptr, nullptr, height,
       width, cam, cam_row, backface_cull, sp, nullptr, threads, plan, nullptr,
       nullptr, mu, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of `threads` threads and `smem_bytes` of dynamic shared memory that
+// one SM holds at once of the score kernel for `epilogue` (with the image
+// where `with_mu` is not 0), as the CUDA runtime counts them
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into `blocks`: what
+// launch_plan's blocks_per_sm is held to on the card.
+extern "C" int bpe_score_occupancy(int epilogue, int with_mu, int threads, int smem_bytes,
+                                   int* blocks) {
+  const size_t smem = (size_t)smem_bytes;
+#define BPE_OCCUPANCY(E)                                         \
+  (int)(with_mu ? occupancy<E, true>(threads, smem, blocks) \
+                : occupancy<E, false>(threads, smem, blocks))
+  switch (epilogue) {
+    case kFixedO: return BPE_OCCUPANCY(kFixedO);
+    case kAssociation: return BPE_OCCUPANCY(kAssociation);
+    case kSmoothAssociation: return BPE_OCCUPANCY(kSmoothAssociation);
+    case kUniformFixedO: return BPE_OCCUPANCY(kUniformFixedO);
+    case kUniformAssociation: return BPE_OCCUPANCY(kUniformAssociation);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BPE_OCCUPANCY
 }
 
 #ifdef BPE_PHASE_CLOCKS

@@ -91,8 +91,9 @@ _FORM_WORDS = 13  # per live face: nine forms and the box c0, c1, r0, r1
 _SMEM_STATIC = 4224  # the kernel's static shared memory (4,112 B), rounded up
 _SMEM_LIMIT = 232448 - _SMEM_STATIC  # dynamic part of what a block may take on sm_90
 _VERT_CACHE_BYTES = 64 * 1024  # projected vertices are cached up to this size
-# threads per block: 512 below two poses per SM of an H100 (132 SMs)
-_POSES_FILL = 2 * 132
+_SMS = 132  # an H100's SMs
+# threads per block: 512 below two poses per SM
+_POSES_FILL = 2 * _SMS
 # The depth-only kernel's face slices. A split costs a fixed ~3 us (the
 # image's zeroing, the merge, a second kernel) and pays where the poses
 # leave most SMs idle: it does below _SPLIT_BELOW poses (half the SMs),
@@ -102,7 +103,7 @@ _POSES_FILL = 2 * 132
 # 100x100: 0.0230 in 88 slices vs 0.4159 in one block per pose; 1,280 faces
 # at 80x60, 24 poses: 0.0116 in 5 vs 0.0136; 120 poses: 0.0218 in 3 vs
 # 0.0145; 100 poses at 30x30: 0.0125 in 3 vs 0.0092.
-_SPLIT_BELOW = 132 // 2
+_SPLIT_BELOW = _SMS // 2
 _SLICE_FACES = 256
 # pixel evaluations (poses x pixels) from which a launch takes the score of
 # uncovered pixels once, in a kernel of its own (~2 us of device time).
@@ -114,6 +115,16 @@ _BOX_TOL = 4e-5  # 4 x the inside test's tolerance
 _BOX_ERR = 2.0 ** -15  # 512 x the fp32 unit roundoff 2^-24
 _BOX_SLACK = 1e-6
 _BOX_WHOLE = 6.0  # from this r on, the box is the whole image
+# What one SM of an H100 holds (sm_90; the CUDA occupancy calculator's
+# figures): shared memory, of which the runtime reserves 1 KB beside each
+# block, registers and threads. The kernels take 54-61 registers a thread
+# (ptxas), held here at 64, the allocation they round to; chip_profile.py
+# kernels holds ``blocks_per_sm`` to the runtime's count on the card.
+_SM_SMEM = 233472
+_SMEM_RESERVED = 1024
+_SM_REGISTERS = 65536
+_SM_THREADS = 2048
+_REGISTERS = 64
 # the plan as the C entry points take it, in their argument order
 _PLAN_ARGS = ("threads", "cache_verts", "face_cap", "band_rows", "band_cols")
 _DEPTH_PLAN_ARGS = (*_PLAN_ARGS, "face_slices")
@@ -319,6 +330,15 @@ def triangle_boxes(verts, faces, cam: CvCamera, t, q, margin=True):
     return c0, c1, r0, r1
 
 
+def _blocks_per_sm(threads, smem):
+    """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
+    memory that one SM of an H100 holds at once, by shared memory (the
+    static part and the runtime's reserve beside each block), by registers
+    (``_REGISTERS`` a thread) and by threads."""
+    by_smem = _SM_SMEM // (smem + _SMEM_STATIC + _SMEM_RESERVED)
+    return min(by_smem, _SM_REGISTERS // (_REGISTERS * threads), _SM_THREADS // threads)
+
+
 def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
                 pixel_budget=None, face_slices=None, depth_only=False):
     """How one block divides its shared memory and its work: ``threads`` per
@@ -328,7 +348,11 @@ def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
     words each); a ``band_rows`` x ``band_cols`` tile of the inverse-depth
     image; ``smem_bytes`` of dynamic shared memory in all; ``face_slices``
     blocks per pose, each on a contiguous slice of ceil(F / face_slices)
-    faces.
+    faces; ``blocks_per_sm``, the blocks one SM holds at once
+    (``_blocks_per_sm``); ``path``: ``"one_chunk"`` (every face of a slice
+    beside the whole image), ``"banded"`` (the image in tiles), else the
+    faces in chunks beside the whole image, ``"resident"`` where two blocks
+    or more share an SM and ``"chunked"`` where one holds it alone.
 
     The defaults keep every face of a slice and the whole image resident
     where they fit in the 227 KB a block may take (less the kernel's static
@@ -336,10 +360,18 @@ def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
     not. The score kernels take one block per pose (``face_slices`` 1). With
     ``depth_only`` (the depth-only kernel) and fewer poses than half the
     SMs, the faces are split: about two blocks per SM in all, at least 256
-    faces a slice, and enough slices that each is one chunk.
+    faces a slice, and enough slices that each is one chunk. A score launch
+    whose faces take chunks beside the whole image and whose poses
+    outnumber the SMs takes chunks small enough that
+    ceil(N / SMs) blocks share an SM, as many as the registers allow, with a
+    chunk of half the block's threads or more (fewer blocks where that does
+    not fit): a block's set-up, barriers and raster are latency chains that
+    one block alone leaves the SM waiting on.
     ``face_budget``, ``pixel_budget`` and ``face_slices`` force other values
-    (for tests of the chunked, banded and split paths); none of them changes
-    the image."""
+    (for tests of the chunked, resident, banded and split paths; the
+    ``face_cap`` of the plan for ``n_poses=None`` given as ``face_budget``
+    keeps one block an SM, the yardstick of the resident path); none of them
+    changes the image."""
     threads = 256 if n_poses is None or n_poses > _POSES_FILL else 512
     for name, b in (("face_budget", face_budget), ("pixel_budget", pixel_budget),
                     ("face_slices", face_slices)):
@@ -348,7 +380,8 @@ def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
     if face_slices is not None and not depth_only:
         raise ValueError("face_slices applies to the depth-only kernel (render_depth)")
     cache_verts = 12 * n_verts <= _VERT_CACHE_BYTES
-    left = _SMEM_LIMIT - (12 * n_verts if cache_verts else 0)
+    verts_bytes = 12 * n_verts if cache_verts else 0
+    left = _SMEM_LIMIT - verts_bytes
     fit = max(1, left // 2 // (4 * _FORM_WORDS))  # faces of one chunk beside the image
     slices = face_slices or 1
     if face_slices is None and depth_only and n_poses is not None and n_poses < _SPLIT_BELOW:
@@ -356,7 +389,17 @@ def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
         slices = max(slices, -(-n_faces // fit))
     if n_poses is not None and n_poses * slices >= 2**31:
         raise ValueError(f"{n_poses} poses x {slices} face slices exceed a launch's blocks")
-    face_cap = max(1, min(-(-n_faces // slices), face_budget or fit))
+    per_slice = -(-n_faces // slices)
+    face_cap = max(1, min(per_slice, face_budget or fit))
+    if face_cap < per_slice and face_budget is None and n_poses is not None and not depth_only:
+        image_bytes = 4 * height * width
+        want = min(-(-n_poses // _SMS), _SM_REGISTERS // (_REGISTERS * threads))
+        for b in range(want, 1, -1):  # blocks an SM
+            share = _SM_SMEM // b - _SMEM_STATIC - _SMEM_RESERVED
+            cap = (share - verts_bytes - image_bytes) // (4 * _FORM_WORDS)
+            if cap >= threads // 2:
+                face_cap = min(face_cap, cap)
+                break
     left -= 4 * _FORM_WORDS * face_cap
     n_pixels = max(1, min(height * width, pixel_budget or left // 4))
     band_cols = min(width, n_pixels)
@@ -365,16 +408,22 @@ def launch_plan(n_verts, n_faces, height, width, n_poses=None, face_budget=None,
                 + band_rows * band_cols)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"the plan needs {smem} bytes of shared memory, over {_SMEM_LIMIT}")
+    blocks = _blocks_per_sm(threads, smem)
+    path = ("banded" if band_rows * band_cols < height * width
+            else "one_chunk" if face_cap >= per_slice
+            else "resident" if blocks >= 2 else "chunked")
     return {"threads": threads, "cache_verts": cache_verts, "face_cap": face_cap,
             "band_rows": band_rows, "band_cols": band_cols, "smem_bytes": smem,
-            "face_slices": slices}
+            "face_slices": slices, "blocks_per_sm": blocks, "path": path}
 
 
 def render_mu_binned_reference(verts, faces, cam: CvCamera, t, q, backface_cull=True,
-                               face_budget=None, pixel_budget=None, face_slices=None):
-    """Rendered depth μ [N, H*W] by the depth kernel's algorithm in plain
-    PyTorch: face slice by face slice, image tile by image tile and face
-    chunk by face chunk (``launch_plan`` for N poses), each live triangle is
+                               face_budget=None, pixel_budget=None, face_slices=None,
+                               depth_only=True):
+    """Rendered depth μ [N, H*W] by the kernels' algorithm in plain PyTorch:
+    face slice by face slice, image tile by image tile and face chunk by
+    face chunk (``launch_plan`` for N poses: the depth-only kernel's plan,
+    or with ``depth_only=False`` a score kernel's), each live triangle is
     tested only at the pixels of its box (``triangle_boxes``) inside the
     tile, and a passing pixel's positive inverse depth goes into the slice's
     image by a scattered max; the slices' images then merge by a max. Same
@@ -386,7 +435,8 @@ def render_mu_binned_reference(verts, faces, cam: CvCamera, t, q, backface_cull=
     n, n_faces = valid.shape
     height, width = cam.height, cam.width
     plan = launch_plan(verts.shape[0], n_faces, height, width, n, face_budget=face_budget,
-                       pixel_budget=pixel_budget, face_slices=face_slices, depth_only=True)
+                       pixel_budget=pixel_budget, face_slices=face_slices,
+                       depth_only=depth_only)
     per_slice = -(-n_faces // plan["face_slices"])
     maxd = torch.zeros(n * height * width, dtype=verts.dtype, device=verts.device)
     for s0 in range(0, n_faces, max(per_slice, 1)):
@@ -507,12 +557,13 @@ def build_library(phase_clocks=False):
 def _cached_plan_args(n_verts, n_faces, height, width, n_poses, tuning, depth_only):
     plan = launch_plan(n_verts, n_faces, height, width, n_poses, **dict(tuning),
                        depth_only=depth_only)
-    return tuple(int(plan[k]) for k in (_DEPTH_PLAN_ARGS if depth_only else _PLAN_ARGS))
+    return (tuple(int(plan[k]) for k in (_DEPTH_PLAN_ARGS if depth_only else _PLAN_ARGS)),
+            plan["path"])
 
 
 def _plan_args(verts, faces, cam, n_poses, tuning, depth_only=False):
-    """The launch plan as the C entry points take it (cached by shape: a
-    chain launches the same shape thousands of times)."""
+    """The launch plan as the C entry points take it, and its path (cached
+    by shape: a chain launches the same shape thousands of times)."""
     return _cached_plan_args(verts.shape[0], faces.shape[0], cam.height, cam.width, n_poses,
                              tuple(sorted(tuning.items())) if tuning else (), depth_only)
 
@@ -623,7 +674,7 @@ def render_depth(verts, faces, cam: CvCamera, t, q, backface_cull=True, device="
         return mu
     lib, _ = build_library()
     c = _camera_scalars(cam)
-    plan = _plan_args(verts, faces, cam, n, tuning, depth_only=True)
+    plan, _ = _plan_args(verts, faces, cam, n, tuning, depth_only=True)
     with torch.cuda.device(verts.device):
         err = lib.bpe_render_depth(
             verts.data_ptr(), verts.shape[0], faces.data_ptr(), faces.shape[0],
@@ -657,7 +708,9 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
     ``render_score_reference``. ``render_score.launches`` counts the kernel
     launches and ``render_score.launches_by`` counts them by epilogue
     (``"+hyper"`` added for launches with a hyper row, ``"+mu"`` for launches
-    that write the image). ``tuning``: as for ``render_depth``, without
+    that write the image); every launch also reports
+    ``("render_score_path", path)`` through ``telemetry.count``, the plan's
+    ``path`` (``launch_plan``). ``tuning``: as for ``render_depth``, without
     ``face_slices`` (a score kernel takes one block per pose); ``cam_row``:
     as for ``render_depth``."""
     dev = resolve_device(device)
@@ -698,7 +751,7 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
         return out
     lib, _ = build_library()
     c = _camera_scalars(cam)
-    plan = _plan_args(verts, faces, cam, n, tuning)
+    plan, path = _plan_args(verts, faces, cam, n, tuning)
     with torch.cuda.device(verts.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.bpe_render_score(
@@ -716,6 +769,7 @@ def render_score(verts, faces, cam: CvCamera, t, q, z, prior_o, params,
     if err != 0:
         raise RuntimeError(f"render_score kernel launch failed: cudaError {err}")
     telemetry.count(("render_score", _kernel_name(variant, hyper, return_mu)))
+    telemetry.count(("render_score_path", path))
     return out
 
 

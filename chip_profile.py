@@ -32,10 +32,15 @@ plain version, then timed with CUDA events and the profiler beside its bound
 with in-kernel phase clocks (no kernel profiler runs on a sealed machine),
 the share of its blocks' cycles in each phase; the rows the paths launch
 most are also timed with the background-score kernel forced off and on (in
-the order off, on, on, off: what the wrapper's threshold rests on). It runs the chain and the tracking profiles
-first, and last replays each row from a CUDA graph of 50 launches: the time per
-launch once the host's pacing (the Python wrapper, ~0.07-0.1 ms a call) is
-out of the way. Between the two, ``render_depth``'s face slices are swept
+the order off, on, on, off: what the wrapper's threshold rests on). A row at
+the shape of the cell ``synthcad_smc_mh.res100_p1000`` (20,000 faces,
+100x100, 1,000 poses) times the plan ``render_score`` picks there (several
+pose blocks an SM) beside one block an SM, each with its blocks per SM held
+to the runtime's count (``res100_row``). It runs the chain and the tracking
+profiles first, and last replays each row from a CUDA graph of 50 launches:
+the time per launch once the host's pacing (the Python wrapper, ~0.07-0.1 ms
+a call) is out of the way. Between the two, ``render_depth``'s face slices
+are swept
 (device time for forced slice counts beside the automatic plan's, its phase
 clocks, and how evenly its slices share the raster's big boxes).
 ``telemetry`` runs one cell of the benchmark (``portbench/``) as its
@@ -351,6 +356,49 @@ def kernel_rows(card, graphs=False):
     return ok
 
 
+def res100_row(card, n_poses=1000):
+    """render_score at the shape of the cell ``synthcad_smc_mh.res100_p1000``
+    (``chip_smoke.res100_kernel_inputs``: a frozen 20,000-face synthcad
+    mesh, 100x100, association with a mask prior), with the plan
+    ``render_score`` picks (``path`` "resident": chunks small enough that
+    several pose blocks share an SM) beside one block an SM
+    (``chip_smoke.res100_plans``). First phase 2's checks there
+    (``chip_smoke.res100_check``: the resident chunks against the plain
+    version at 8 poses, the plans bitwise equal, blocks an SM against the
+    runtime's count); then, at ``n_poses``, both plans' device time a launch
+    (profiler, eager), paced time (CUDA events), time from a CUDA graph, the
+    bound and the share of it, ``blocks_per_sm`` beside the runtime's count,
+    and the share of the blocks' cycles in each phase (a
+    ``-DBPE_PHASE_CLOCKS`` build)."""
+    import torch
+
+    import chip_smoke
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+
+    dev, sync = "cuda", torch.cuda.synchronize
+    failures = []
+    check = chip_smoke.res100_check(dev, failures, n_poses)
+    args = chip_smoke.res100_kernel_inputs(dev, n_poses)
+    b_ms, b_by, _, pairs = chip_smoke.bound_ms(args, "association")
+    timed = {}
+    for name, (tuning, plan) in chip_smoke.res100_plans(args).items():
+
+        def run(tuning=tuning):
+            return render_score(*args, device=dev, tuning=tuning)
+
+        dev_ms = chip_smoke.device_ms(run, 20)
+        timed[name] = {"plan": plan, "runtime_blocks_per_sm": chip_smoke.occupancy(plan),
+                       "device_ms": dev_ms, "ms": chip_smoke.time_ms(run, 20, sync),
+                       "graph_ms": graph_ms(run, n=20, reps=5),
+                       "share_of_bound": b_ms / dev_ms if dev_ms else None,
+                       "phases": phase_shares(run, n=5)}
+    print(json.dumps({"row": f"render_score[association] res100 shape, {args[1].shape[0]} "
+                             f"faces 100x100, {n_poses} poses, mask prior", "card": card,
+                      "check": check, "failures": failures, "bound_ms": b_ms, "bound_by": b_by,
+                      "live_pairs": pairs, **timed}))
+    return not failures
+
+
 def slice_box_load(args, backface_cull, slices):
     """How evenly ``slices`` face slices share the raster: per (pose,
     slice), the pixels of its boxes above 128 pixels (kBigBox: a sliver
@@ -501,7 +549,8 @@ def telemetry_numbers(setup, window):
     the window's: µs a step (a tracked frame) outside the replay call
     (``runner.advance`` less the replay nanoseconds) and inside it, each
     counted part of a step and their share of the loop, mean spans of a
-    request in ms, and the set-up's span totals (s) and capture self time."""
+    request in ms, the set-up's span totals (s) and capture self time, and
+    the window's ``render_score`` launches beside their plans' paths."""
     counts, spans = window["counts"], _span_totals(window["spans"])
     steps = counts[("runner", "steps")]
     requests = sum(1 for sp in window["spans"] if sp["parent"] == -1 and sp["name"] in ROOTS)
@@ -520,6 +569,9 @@ def telemetry_numbers(setup, window):
         "setup_capture_s": setup_spans.get("runner.capture", [0, 0.0, 0.0])[2],
         "setup_counts": {"/".join(k): v for k, v in setup["counts"].items()
                          if k[0] in ("graph", "library")},
+        "render_score_launches": sum(v for k, v in counts.items() if k[0] == "render_score"),
+        "render_score_paths": {k[1]: v for k, v in counts.items()
+                               if k[0] == "render_score_path"},
         "dropped": setup["dropped"] + window["dropped"],
     }
 
@@ -583,7 +635,7 @@ def main() -> int:
         # anything or loaded the build with phase clocks
         profile_chain(card)
         profile_tracking(card)
-        if not (kernel_rows(card) and face_slice_sweep(card)):
+        if not (kernel_rows(card) and res100_row(card) and face_slice_sweep(card)):
             print("chip_profile: a kernel row disagrees with its plain version",
                   file=sys.stderr)
             return 1

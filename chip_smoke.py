@@ -13,7 +13,13 @@ Phases (each prints its results; any failure exits non-zero):
      ``hyper`` row at 30x30 and 80x60: ell and sum_o within rtol=1e-3,
      atol=0.2, a median relative difference <= 1e-4 and bitwise-equal
      repeats; time every epilogue group and the hyper path at the benchmark
-     shape against its plain version and its bound;
+     shape against its plain version and its bound; the resident path
+     (every epilogue, with and without the hyper row, forced by a face
+     budget) bitwise against a one-chunk launch, and the path counter; at
+     the res100 cell's shape (20,000 faces, 100x100, 1,000 poses) the
+     automatic resident plan bitwise against one block an SM, its face
+     chunks against the plain version at 8 poses, and every score kernel's
+     blocks an SM against the runtime's count;
   3. run the benchmark chain through the port (bench.py's configuration:
      tempered SMC-MH, association posterior, 1280-face mesh, 30x30 crop,
      100 particles, 500 steps; ``bench_torch.run_chain``) after one warm-up
@@ -522,6 +528,193 @@ def forced_plan_check(args, label, device, failures):
               f"{auto} face slices): render_depth image bitwise equal {same}")
         if not same:
             failures.append(f"forced plan {tuning} at {label}")
+
+
+def path_counter():
+    """A ``collections.Counter`` of the ``("render_score_path", path)``
+    reports while it is listening (``telemetry.add_listener``), and the
+    listener to remove."""
+    import collections
+
+    from bayesianposeestimation.jl_tpu_torch import telemetry
+
+    paths = collections.Counter()
+
+    def listen(key, n):
+        if isinstance(key, tuple) and key[0] == "render_score_path":
+            paths[key[1]] += n
+
+    telemetry.add_listener(listen)
+    return paths, listen
+
+
+def resident_path_check(args, label, device, failures):
+    """Phase 2: the resident path (``launch_plan``'s ``"resident"``: face
+    chunks small enough that several pose blocks share an SM) against a
+    one-chunk launch of the same inputs. Every epilogue, with the sigmas as
+    parameters and from a device ``hyper`` row, forced onto the resident
+    path by a face budget below the face count: ell and sum_o bitwise equal
+    to the one-chunk launch, and so are μ, ell and sum_o of the ``+mu``
+    launch under the same budget. Then the path counter (``("render_score_path",
+    path)``) must have recorded these launches' paths and one of the banded
+    path (``res100_check`` records the chunked path)."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import telemetry
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        EPILOGUES,
+        SCORE_VARIANTS,
+        launch_plan,
+        render_score,
+    )
+
+    verts, faces, cam, t = args[:4]
+    tuning = {"face_budget": max(1, faces.shape[0] // 3)}
+    plans = {k: launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width,
+                            t.shape[0], **kw)
+             for k, kw in (("one chunk", {}), ("forced", tuning))}
+    hyper = torch.tensor(HYPER, dtype=torch.float32, device=device)
+    paths, listen = path_counter()
+    try:
+        for epilogue in EPILOGUES:
+            variant = next(v for v, e in SCORE_VARIANTS.items() if e == epilogue)
+            for row in (None, hyper):
+                base = render_score(*args, variant=variant, hyper=row, device=device)
+                forced = render_score(*args, variant=variant, hyper=row, device=device,
+                                      tuning=tuning)
+                torch.cuda.synchronize()
+                same = all(bool(torch.equal(a, b)) for a, b in zip(base, forced))
+                print(f"phase 2 resident path at {label}, {epilogue}"
+                      f"{'' if row is None else ' +hyper'}: faces per chunk "
+                      f"{plans['forced']['face_cap']} of {faces.shape[0]}, "
+                      f"{plans['forced']['blocks_per_sm']} blocks an SM (one chunk: "
+                      f"{plans['one chunk']['blocks_per_sm']}): ell and sum_o bitwise equal "
+                      f"{same}")
+                if not same:
+                    failures.append(f"resident path at {label}: {epilogue} hyper {row is not None}")
+        base = render_score(*args, device=device, return_mu=True)
+        forced = render_score(*args, device=device, return_mu=True, tuning=tuning)
+        render_score(*args, device=device, tuning={"pixel_budget": 7 * cam.width})
+        torch.cuda.synchronize()
+    finally:
+        telemetry.remove_listener(listen)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(base, forced))
+    wanted = {"one_chunk": 11, "resident": 11, "banded": 1}
+    print(f"phase 2 resident path at {label}, association +mu: mu, ell and sum_o bitwise equal "
+          f"{same}; launches by path {dict(paths)} (wanted {wanted})")
+    if plans["forced"]["path"] != "resident" or plans["one chunk"]["path"] != "one_chunk":
+        failures.append(f"resident path at {label}: plans {plans}")
+    if not same or dict(paths) != wanted:
+        failures.append(f"resident path at {label}: +mu or the path counter")
+
+
+def occupancy(plan, epilogue="association", with_mu=False):
+    """The blocks of ``plan`` that one SM holds at once of the score kernel
+    for ``epilogue`` (the form that writes the image where ``with_mu``), as
+    the CUDA runtime counts them (``bpe_score_occupancy``), or the error."""
+    import ctypes
+
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import EPILOGUES, build_library
+
+    fn = build_library()[0].bpe_score_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(-1)
+    err = fn(EPILOGUES[epilogue], int(with_mu), plan["threads"], plan["smem_bytes"],
+             ctypes.byref(blocks))
+    return blocks.value if err == 0 else f"cudaError {err}"
+
+
+def res100_plans(args):
+    """At the inputs ``args``: the plan ``render_score`` picks and the
+    plan of one block an SM (the ``face_cap`` of the plan for no pose count
+    as ``face_budget``), each as (tuning, plan)."""
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import launch_plan
+
+    verts, faces, cam, t = args[:4]
+    shape = (verts.shape[0], faces.shape[0], cam.height, cam.width)
+    one_block = {"face_budget": launch_plan(*shape)["face_cap"]}
+    return {"resident": (None, launch_plan(*shape, t.shape[0])),
+            "one block an SM": (one_block, launch_plan(*shape, t.shape[0], **one_block))}
+
+
+def res100_check(device, failures, n_poses=1000, n_check=8):
+    """Phase 2: ``render_score`` at the shape of the cell
+    ``synthcad_smc_mh.res100_p1000`` (``res100_kernel_inputs``: 20,000
+    faces, 100x100, a mask prior), where its own plan takes the resident
+    path (``res100_plans``). At ``n_check`` poses under that plan's face
+    chunks: μ of the ``+mu`` launch bitwise equal to the plain binned version
+    under those chunks, ell and sum_o within ``TOL`` of the plain version. At
+    ``n_poses``: every epilogue with and without the ``hyper`` row, and the
+    ``+mu`` launch, bitwise equal under the automatic plan and one block an
+    SM; the path counter's reports. For every epilogue, with the image and
+    without, the plan's ``blocks_per_sm`` equal to the runtime's count, at
+    ``n_poses`` (256 threads) and under the forced chunks at ``n_check`` (512
+    threads). Returns the numbers."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import telemetry
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
+        EPILOGUES,
+        SCORE_VARIANTS,
+        launch_plan,
+        render_mu_binned_reference,
+        render_score,
+        render_score_reference,
+    )
+
+    args = res100_kernel_inputs(device, n_poses)
+    plans = res100_plans(args)
+    chunks = {"face_budget": plans["resident"][1]["face_cap"]}
+    small = res100_kernel_inputs(device, n_check)
+    verts, faces, cam = small[:3]
+    forced = launch_plan(verts.shape[0], faces.shape[0], cam.height, cam.width, n_check,
+                         **chunks)
+    hyper = torch.tensor(HYPER, dtype=torch.float32, device=device)
+    cases = [(f"{e}{'' if row is None else ' +hyper'}",
+              next(v for v, x in SCORE_VARIANTS.items() if x == e), row, False)
+             for e in EPILOGUES for row in (None, hyper)]
+    cases.append(("association +mu", "association", None, True))
+    paths, listen = path_counter()
+    try:
+        ell, sum_o, mu = render_score(*small, device=device, return_mu=True, tuning=chunks)
+        ref = render_score_reference(*small)
+        binned = render_mu_binned_reference(*small[:5], face_budget=chunks["face_budget"],
+                                            depth_only=False).reshape(mu.shape)
+        unequal = []
+        for name, variant, row, with_mu in cases:
+            outs = [render_score(*args, variant=variant, hyper=row, device=device, tuning=tuning,
+                                 return_mu=with_mu)
+                    for tuning, _ in plans.values()]
+            if not all(bool(torch.equal(a, b)) for a, b in zip(*outs)):
+                unequal.append(name)
+        torch.cuda.synchronize()
+    finally:
+        telemetry.remove_listener(listen)
+    runtime = {f"{name} {e}{' +mu' if with_mu else ''}": occupancy(plan, e, with_mu)
+               for name, plan in (("resident", plans["resident"][1]), ("forced", forced))
+               for e in EPILOGUES for with_mu in (False, True)}
+    off = {k: v for k, v in runtime.items()
+           if v != (plans["resident"][1] if k.startswith("resident") else forced)["blocks_per_sm"]}
+    wanted = {"resident": 12, "chunked": 11}
+    res = {"poses": n_check, "faces_per_chunk": chunks["face_budget"],
+           "mu_bitwise_vs_binned": bool(torch.equal(mu, binned)),
+           "sums_within_tolerance": all(bool(torch.allclose(a, b, **TOL))
+                                        for a, b in zip((ell, sum_o), ref)),
+           "max_abs_err": max(float((a - b).abs().max()) for a, b in zip((ell, sum_o), ref)),
+           "plans": {name: plan for name, (_, plan) in plans.items()}, "forced": forced,
+           "unequal_between_plans": unequal, "launches_by_path": dict(paths),
+           "runtime_blocks_per_sm_off": off}
+    print(f"phase 2 res100 shape, {n_poses} poses: {json.dumps(res)} (wanted paths {wanted})")
+    if not (res["mu_bitwise_vs_binned"] and res["sums_within_tolerance"]):
+        failures.append("res100 shape: the resident chunks against the plain version")
+    if unequal:
+        failures.append(f"res100 shape: plans disagree on {unequal}")
+    if plans["resident"][1]["path"] != "resident" or dict(paths) != wanted:
+        failures.append("res100 shape: the path or the path counter")
+    if off:
+        failures.append(f"res100 shape: blocks an SM off the runtime's count: {off}")
+    return res
 
 
 def camera_row_check(args, label, device, failures):
@@ -1082,6 +1275,47 @@ def tracking_kernel_inputs(device, n_poses=600, seed=0):
     params = Parameters(width=w, height=h, device=str(device))
     return (verts, faces, cam, t.contiguous(), q.contiguous(), z.contiguous(),
             params.o_mask_is, params)
+
+
+def res100_kernel_inputs(device, n_poses=1000, obj_id=1, seed=0):
+    """Kernel inputs at the shape of the benchmark cell
+    ``synthcad_smc_mh.res100_p1000``: the frozen 20,000-face decimation of
+    synthcad object ``obj_id`` (``portbench/data/meshes``), a 100x100 crop
+    camera (f = 373 px) with the object 0.7 m away, ``n_poses`` random
+    rotations 1.6 cm around that point (the SMC prior's spread), the noisy
+    render of one pose over a 1.1 m background as the observation, the mask
+    prior of CAD_TUNED (``o_mask_is`` on the object's pixels, ``o_mask_not``
+    off them) and its likelihood sigmas."""
+    import numpy as np
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import quaternions as quat
+    from bayesianposeestimation.jl_tpu_torch.camera import CvCamera
+    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import mesh_tensors
+    from bayesianposeestimation.jl_tpu_torch.ops.rasterize import render_depth
+    from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
+
+    with np.load(REPO / "portbench/data/meshes" / f"synthcad_obj_{obj_id}_20000.npz") as m:
+        verts, faces = mesh_tensors(m["vertices"], m["faces"], device)
+    w = h = 100
+    cam = CvCamera(width=w, height=h, f_x=373.0, f_y=373.0, c_x=(w - 1) / 2,
+                   c_y=(h - 1) / 2, near=0.01, far=10.0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    gt_t = torch.tensor([0.0, 0.0, 0.7], device=device)
+    gt_q = quat.rand_quaternion(gen, (1,))
+    clean = render_depth(verts, faces, cam, gt_t, gt_q[0])
+    noise = torch.randn(clean.shape, generator=gen, device=device)
+    z = torch.where(clean > 0, clean, torch.full_like(clean, 1.1)) + 0.002 * noise
+    t = gt_t + 0.016 * torch.randn((n_poses, 3), generator=gen, device=device)
+    q = quat.rand_quaternion(gen, (n_poses,))
+    tuned = TUNED_SETS["CAD_TUNED"]
+    params = Parameters(width=w, height=h, device=str(device),
+                        pixel_sigma=tuned["pixel_sigma"],
+                        association_sigma=tuned["association_sigma"],
+                        o_mask_is=tuned["o_mask_is"], o_mask_not=tuned["o_mask_not"])
+    prior = torch.where(clean > 0, params.o_mask_is, params.o_mask_not)
+    return (verts, faces, cam, t.contiguous(), q.contiguous(), z.contiguous(),
+            prior.contiguous(), params)
 
 
 def compare_depth_kernels(args, device):
@@ -4104,6 +4338,9 @@ def main() -> int:
     t0 = time.perf_counter()
     forced_plan_check(track_args, "the tracking shape", dev, failures)
     forced_plan_check(flagship, "the bench shape", dev, failures)
+    resident_path_check(variant_args["30x30"], "the bench shape with a mask prior", dev,
+                        failures)
+    res100_check(dev, failures)
     background_path_check(track_args, dev, failures)
     camera_row_check(flagship, "the bench shape", dev, failures)
     camera_row_check(track_args, "the tracking shape", dev, failures)

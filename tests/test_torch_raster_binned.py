@@ -418,3 +418,102 @@ def test_box_constants_match_the_kernel_source():
     assert constant("kSmemLimit") == cuda_raster._SMEM_LIMIT + cuda_raster._SMEM_STATIC == 232448
     static = 2 * int(constant("kAccumulators")) * 16 * 4 + 3 * 4
     assert -(-static // 16) * 16 <= cuda_raster._SMEM_STATIC
+
+
+SM_SMEM, RESERVED = 233472, 1024  # an H100 SM's shared memory; the runtime's reserve a block
+
+
+@pytest.mark.parametrize("n_verts,n_faces,h,w,n_poses,kw,path,face_cap,blocks", [
+    # the res100 cell's 20,000 faces at 100x100: ceil(N / 132) blocks an SM, at
+    # most 4 of 256 threads (2 of 512) by registers
+    (10_002, 20_000, 100, 100, 1000, {}, "resident", 252, 4),
+    (10_002, 20_000, 100, 100, 500, {}, "resident", 252, 4),
+    (10_002, 20_000, 100, 100, 300, {}, "resident", 626, 3),
+    (10_002, 20_000, 100, 100, 200, {}, "resident", 1374, 2),
+    (10_002, 20_000, 100, 100, 133, {}, "resident", 1374, 2),
+    (10_002, 20_000, 100, 100, 132, {}, "chunked", 2194, 1),  # a block an SM already
+    (10_002, 20_000, 100, 100, 100, {}, "chunked", 2194, 1),
+    (1_602, 3_200, 40, 40, 1000, {}, "resident", 528, 4),  # the CAD decimation at 40x40
+    (10_242, 20_480, 120, 160, 600, {}, "resident", 667, 2),
+    (10_002, 20_000, 165, 165, 1000, {}, "chunked", 2194, 1),  # two blocks leave < 128 faces
+    (40_962, 81_920, 100, 100, 1000, {}, "resident", 252, 4),  # the evaluation meshes' size
+    (10_002, 20_000, 100, 100, 1000, {"depth_only": True}, "chunked", 2194, 1),
+    # one block an SM: the face_cap of the plan for no pose count, forced
+    (10_002, 20_000, 100, 100, 1000, {"face_budget": 2194}, "chunked", 2194, 1),
+    (642, 1280, 30, 30, 100, {}, "one_chunk", 1280, 2),
+    (642, 1280, 30, 30, 100, {"face_budget": 400}, "resident", 400, 2),  # forced
+    (130, 256, 60, 80, 600, {"face_budget": 85}, "resident", 85, 4),
+    (642, 1280, 30, 30, 100, {"face_budget": 400, "pixel_budget": 450}, "banded", 400, 2),
+    (642, 1280, 480, 640, 8, {}, "banded", 1280, 1)])
+def test_launch_plan_takes_the_resident_path_where_faces_take_chunks_and_the_image_fits(
+        n_verts, n_faces, h, w, n_poses, kw, path, face_cap, blocks):
+    plan = launch_plan(n_verts, n_faces, h, w, n_poses, **kw)
+    assert (plan["path"], plan["face_cap"], plan["blocks_per_sm"]) == (path, face_cap, blocks)
+    # the footprint, times the blocks an SM holds, fits the SM, and so do the
+    # blocks' registers at 64 a thread
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"] + cuda_raster._SMEM_STATIC
+                                    + RESERVED) <= SM_SMEM
+    assert plan["blocks_per_sm"] * plan["threads"] * 64 <= 65536
+    words = ((3 * n_verts if plan["cache_verts"] else 0) + 13 * plan["face_cap"]
+             + plan["band_rows"] * plan["band_cols"])
+    assert plan["smem_bytes"] == 4 * words
+    # the rule shrinks the chunks only where the plan without it (one block
+    # an SM: the face_cap of the plan for no pose count) takes the faces in
+    # chunks beside the whole image, for a score launch, and to no more
+    # blocks than the poses fill
+    one_block = launch_plan(n_verts, n_faces, h, w)["face_cap"]
+    before = launch_plan(n_verts, n_faces, h, w, n_poses, **{"face_budget": one_block, **kw})
+    if plan != before:
+        assert "face_budget" not in kw and not kw.get("depth_only")
+        assert before["path"] == "chunked" and before["face_cap"] < n_faces
+        assert n_poses > cuda_raster._SMS
+        assert 2 <= plan["blocks_per_sm"] <= -(-n_poses // cuda_raster._SMS)
+        assert plan["face_cap"] >= plan["threads"] // 2
+        assert plan["threads"] == before["threads"] and plan["cache_verts"] == before["cache_verts"]
+    if plan["path"] == "resident":
+        assert (plan["band_rows"], plan["band_cols"]) == (h, w)
+        assert plan["face_cap"] < n_faces and plan["blocks_per_sm"] >= 2
+
+
+@pytest.mark.parametrize("mesh,h,w,n_poses", [
+    ("synthcad_obj_1_1800", 30, 30, 100), ("synthcad_obj_2_1800", 30, 30, 100),
+    ("synthcad_obj_3_1800", 30, 30, 100), ("monkey_0.18_256", 60, 80, 600)])
+def test_score_plans_of_the_benchmark_meshes_are_unchanged(mesh, h, w, n_poses):
+    """The `.bop` cell's three 1,800-face meshes at 30x30 and 100 poses and
+    the `.synth120` cell's 256-face monkey at 80x60 and 600 poses keep the
+    one-chunk plan they had before the resident form existed."""
+    with np.load(Path(__file__).resolve().parents[1] / "portbench/data/meshes" / f"{mesh}.npz") as m:
+        n_verts, n_faces = m["vertices"].shape[0], m["faces"].shape[0]
+    before = {"synthcad_obj_1_1800": (512, 1800, 108024), "synthcad_obj_2_1800": (512, 1800, 108024),
+              "synthcad_obj_3_1800": (512, 1800, 108000), "monkey_0.18_256": (256, 256, 34072)}
+    threads, face_cap, smem = before[mesh]
+    plan = launch_plan(n_verts, n_faces, h, w, n_poses)
+    assert {k: plan[k] for k in ("threads", "cache_verts", "face_cap", "band_rows",
+                                 "band_cols", "smem_bytes", "face_slices", "path")} == {
+        "threads": threads, "cache_verts": True, "face_cap": face_cap, "band_rows": h,
+        "band_cols": w, "smem_bytes": smem, "face_slices": 1, "path": "one_chunk"}
+
+
+@pytest.mark.parametrize("mesh_name,w,h,face_budget", [
+    ("monkey", 30, 30, 400), ("monkey", 80, 60, 100), ("monkey", 23, 37, 1),
+    ("cube", 16, 16, 5), ("cube", 23, 37, 1)])
+def test_binned_reference_under_the_resident_plan_equals_all_pixels(mesh_name, w, h,
+                                                                    face_budget):
+    args = _scene(mesh_name, w, h, n=3, seed=6)
+    plan = launch_plan(args[0].shape[0], args[1].shape[0], h, w, 3, face_budget=face_budget)
+    assert plan["path"] == "resident"
+    mu = render_mu_reference(*args)
+    assert float((mu > 0).float().mean()) > 0.03
+    assert torch.equal(render_mu_binned_reference(*args, face_budget=face_budget,
+                                                  depth_only=False), mu)
+
+
+def test_occupancy_entry_point_in_the_kernel_source():
+    """The card holds ``blocks_per_sm`` to the runtime's count through this
+    entry point (``chip_smoke.occupancy``)."""
+    import re
+
+    src = (Path(cuda_raster.__file__).resolve().parents[1] / "csrc" / "render_score.cu").read_text()
+    assert re.search(r"extern \"C\" int bpe_score_occupancy\(int epilogue, int with_mu, "
+                     r"int threads, int smem_bytes,\s+int\* blocks\)", src)
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src
