@@ -21,21 +21,30 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 
-def readings(cell, config, seed, device, control, seconds):
+def window(cell, config, seed, device, seconds):
+    """A short window of the cell from ``seed``: (check kind, records, meshes,
+    the configuration as the reference reads it, requests served)."""
     from portbench import cells
-    from portbench.reference import check
 
-    mod = cells.entry_module(config)
-    entry = mod.Entry(cell, config, seed, device)
+    entry = cells.entry_module(config).Entry(cell, config, seed, device)
     entry.setup()
     t0, i = time.perf_counter(), 0
     while i < entry.check.k or time.perf_counter() - t0 < seconds:
         entry.run(i)
         i += 1
-    records, meshes, cfg = entry.records(), entry.meshes(), entry.check_config()
+    out = (entry.check_kind, entry.records(), entry.meshes(), entry.check_config(), i)
     entry.free()
-    out = check.judge(mod.CHECK, records, meshes, cfg, device, control=control)
-    out.update(seed=seed, requests=i, checked=len(records))
+    return out
+
+
+def readings(cell, config, seed, device, control, seconds):
+    from portbench.reference import check
+
+    kind, records, meshes, cfg, served = window(cell, config, seed, device, seconds)
+    t0 = time.perf_counter()
+    out = check.judge(kind, records, meshes, cfg, device, control=control)
+    out.update(seed=seed, requests=served, checked=len(records),
+               check_s=time.perf_counter() - t0)
     return out
 
 

@@ -3,9 +3,12 @@ request, the host prep (``camera.crop_camera``, ``camera.crop_image``,
 ``models.experiment_models.point_from_segmentation``), one
 ``models.fused.make_conditioned_chain(..., captured=True)`` runner call per
 object (the configuration's sampler and posterior for its fixed step
-count), and the estimate: the final population's particle of highest
-log-likelihood, read back to the host, as the BOP validation script takes
-it."""
+count), and the estimate, read back to the host as the BOP validation
+script takes it: by the configuration's ``estimate``, the final
+population's particle of highest log-likelihood (``final_best``, SMC, one
+chain per particle) or the one chain's sample of highest log-likelihood
+over all its steps (``chain_best``, the MCMC baselines). Each estimate has
+its check kind (``ESTIMATES``)."""
 
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
 from .common import PORTBENCH, Reservoir, Spans, load_mesh, request_seed
 
 KIND = "pose"  # the per-layer metrics' suffix
-CHECK = "bop"
+ESTIMATES = {"final_best": "bop", "chain_best": "mcmc"}  # estimate -> check kind
 NEAR, FAR = 0.01, 10.0  # the full camera's clip depths, as the BOP reader sets them
 
 
@@ -34,6 +37,10 @@ class Entry:
         self.size = int(traffic["resolution"])
         self.n_particles = int(traffic["n_particles"])
         self.n_steps = int(config["n_steps"])
+        self.estimate = config.get("estimate", "final_best")
+        self.check_kind = ESTIMATES[self.estimate]
+        # as the BOP script decides both: the MCMC baselines run one chain
+        self.n_chains = 1 if self.estimate == "chain_best" else self.n_particles
         self.params = Parameters(width=self.size, height=self.size,
                                  n_particles=self.n_particles, n_steps=self.n_steps,
                                  device=torch.device(device).type,
@@ -63,7 +70,7 @@ class Entry:
             self.meshes_dev[obj] = dev
             self.runners[obj] = make_conditioned_chain(
                 self.params, host[0], host[1], self.config["variant"], factory, self.n_steps,
-                device=self.device, captured=True)
+                n_chains=self.n_chains, device=self.device, captured=True)
         # warm-up: one request of each object captures its runner's steps
         for obj in self.runners:
             item = next(it for it in self.items if it["obj_id"] == obj)
@@ -88,10 +95,15 @@ class Entry:
             outs, _ = self.runners[it["obj_id"]](seed, cam, obs, prior_o, prior_t,
                                                  n_steps=self.n_steps)
         with spans("estimate"):
-            ll_all = outs["log_like"].cpu().numpy()
-            pick = int(np.argmax(ll_all[-1]))
-            t = outs["t"][-1, pick].cpu().numpy()
-            q = outs["r"][-1, pick].cpu().numpy()
+            ll_all = outs["log_like"].cpu().numpy()  # [steps, chains]
+            if self.estimate == "chain_best":  # pick: the flat (step, chain) index
+                pick = int(np.argmax(ll_all))
+                step, chain = divmod(pick, ll_all.shape[1])
+            else:  # pick: the particle of the final step
+                pick = int(np.argmax(ll_all[-1]))
+                step, chain = ll_all.shape[0] - 1, pick
+            t = outs["t"][step, chain].cpu().numpy()
+            q = outs["r"][step, chain].cpu().numpy()
         return (cam, obs, prior_o, prior_t), outs, pick, (t, q)
 
     def run(self, i, traced=False):
@@ -107,20 +119,24 @@ class Entry:
 
     def _record(self, it, prep, outs, pick, t, q):
         cam, obs, prior_o, prior_t = prep
+        rec = dict(
+            depth=it["depth"], mask=it["mask"], K=it["K"], diameter=it["diameter"],
+            mesh=it["obj_id"], n_rows=int(outs["t"].shape[0]),
+            prep=dict(cam={k: float(getattr(cam, k)) for k in ("f_x", "f_y", "c_x", "c_y", "s")},
+                      obs=np.asarray(obs), prior_o=prior_o, point=np.asarray(prior_t)),
+            pick=pick, estimate=(torch.as_tensor(t), torch.as_tensor(q)))
+        if self.estimate == "chain_best":  # the whole chain, kept on the host
+            rec["chain"] = {k: outs[k].cpu() for k in ("t", "r", "log_prob", "log_like")}
+            return rec
 
         def pop(k):
             return {name: outs[key][k] for name, key in
                     (("t", "t"), ("r", "r"), ("log_like", "log_like"),
                      ("log_weights", "log_weights"))}
 
-        return dict(
-            depth=it["depth"], mask=it["mask"], K=it["K"], diameter=it["diameter"],
-            mesh=it["obj_id"], n_rows=int(outs["t"].shape[0]),
-            prep=dict(cam={k: float(getattr(cam, k)) for k in ("f_x", "f_y", "c_x", "c_y", "s")},
-                      obs=np.asarray(obs), prior_o=prior_o, point=np.asarray(prior_t)),
-            populations={"prev": pop(-2), "final": pop(-1)}, pick=pick,
-            temperatures=outs["temperature"][-2:].cpu().numpy(),
-            estimate=(torch.as_tensor(t), torch.as_tensor(q)))
+        rec.update(populations={"prev": pop(-2), "final": pop(-1)},
+                   temperatures=outs["temperature"][-2:].cpu().numpy())
+        return rec
 
     # -- what the check and the trace read ----------------------------------------
 
@@ -130,7 +146,7 @@ class Entry:
     def check_config(self):
         """The configuration as the reference reads it: the stated values."""
         return dict(self.config["parameters"], width=self.size, height=self.size, near=NEAR,
-                    far=FAR, n_steps=self.n_steps)
+                    far=FAR, n_steps=self.n_steps, epilogue=self.config["epilogue"])
 
     def roofline_inputs(self):
         """Per traced request: (mesh, crop camera fields, t [S, N, 3], r [S, N, 4])."""

@@ -25,7 +25,6 @@ from ..reference import raster
 from .common import Reservoir, Spans, load_mesh, request_seed
 
 KIND = "track"
-CHECK = "track"
 FILTERS = {"coordinate": coordinate_pf, "bootstrap": bootstrap_pf}
 
 
@@ -42,6 +41,8 @@ def pose_estimates(outs):
 
 
 class Entry:
+    check_kind = "track"
+
     def __init__(self, cell, config, seed, device):
         self.cell, self.config, self.seed, self.device = cell, config, seed, device
         tr = cell["traffic"]

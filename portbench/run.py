@@ -183,7 +183,7 @@ def run_cell(cell, config, seed, seconds, trace_on, device="cuda", t_start=None)
     entry.free()
     if device != "cpu":
         torch.cuda.empty_cache()
-    numbers = check.judge(mod.CHECK, records, meshes, cfg, device)["program"]
+    numbers = check.judge(entry.check_kind, records, meshes, cfg, device)["program"]
     limits = cell["check"]["limits"]
     within = all(numbers[k] <= limits[k] for k in limits)
     result["correct"] = bool(within and records and not failed)

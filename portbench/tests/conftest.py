@@ -26,13 +26,14 @@ def card():
 
 def tiny_cell(name):
     """The cell ``name`` cut to a size a CPU test run holds: 4 particles and
-    5 steps a pose, or 16 particles on 2 clips of 6 frames at 40x30; the
-    check reads 2 requests."""
+    5 steps a pose (an MCMC chain: its chains, and 40 steps, so that it
+    moves), or 16 particles on 2 clips of 6 frames at 40x30; the check reads
+    2 requests."""
     from portbench import cells
 
     cell, config = cells.load(name)
     if config["entry"] == "conditioned_chain":
-        config["n_steps"] = 5
+        config["n_steps"] = 40 if config.get("estimate") == "chain_best" else 5
         cell["traffic"]["n_particles"] = 4
     else:
         config["n_particles"] = 16

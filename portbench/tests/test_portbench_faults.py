@@ -4,15 +4,12 @@ The harness's look for a card is skipped: the rest of a run (set-up,
 window, check) runs on the CPU at a test size (``tiny_cell``)."""
 
 import pytest
-import torch
 
-from bayesianposeestimation.jl_tpu_torch import capture
-from bayesianposeestimation.jl_tpu_torch.models import fused
-from bayesianposeestimation.jl_tpu_torch.samplers import smc
 from portbench import calibrate
 from portbench.run import run_cell
+from portbench.tools import faults
 
-CELLS = ["synthcad_smc_mh.bop", "track_coordinate.synth120"]
+CELLS = ["synthcad_smc_mh.bop", "track_coordinate.synth120", "synthcad_mh.bop"]
 
 
 def _run(tiny, name):
@@ -22,49 +19,24 @@ def _run(tiny, name):
     return result
 
 
-def _unchanged(monkeypatch):
-    """Every SMC step returns the state it was given."""
-    monkeypatch.setattr(smc.SequentialMonteCarlo, "step",
-                        lambda self, rngs, model, old: (old.sample, old))
-
-
-def _half_batch(monkeypatch):
-    """The likelihood of the first half of the poses; the rest get its mean."""
-    real = fused.render_score
-
-    def half(verts, faces, cam, t, q, *args, **kw):
-        n = t.shape[0]
-        k = max(1, n // 2)
-        ell, sum_o = real(verts, faces, cam, t[:k].contiguous(), q[:k].contiguous(), *args, **kw)
-        return (torch.cat([ell, ell.mean().expand(n - k)]),
-                torch.cat([sum_o, sum_o.mean().expand(n - k)]))
-
-    monkeypatch.setattr(fused, "render_score", half)
-
-
-def _altered_answer(monkeypatch):
-    """The chain's last poses moved by 5 mm where they are produced."""
-    real = capture.ChainRunner.run
-
-    def run(self, *args, **kw):
-        outs, final = real(self, *args, **kw)
-        outs["t"][-1] += 0.005
-        return outs, final
-
-    monkeypatch.setattr(capture.ChainRunner, "run", run)
-
-
 @pytest.mark.parametrize("name", CELLS)
 def test_sound_run_is_correct(name, tiny):
     result = _run(tiny, name)
     assert result["correct"], result["checks"]
 
 
-@pytest.mark.parametrize("fault", [_unchanged, _half_batch, _altered_answer],
-                         ids=["state_unchanged", "half_batch", "answer_altered"])
-@pytest.mark.parametrize("name", CELLS)
+# the faults each cell can have (``tools/faults.py``): half a launch's poses
+# left out needs more than one pose a launch; an MH test dropped, an MH chain
+FAULTS = {"synthcad_smc_mh.bop": ("state_unchanged", "half_batch", "answer_altered"),
+          "track_coordinate.synth120": ("state_unchanged", "half_batch", "answer_altered"),
+          "synthcad_mh.bop": ("state_unchanged", "likelihood_moved", "answer_altered",
+                              "all_accepted")}
+
+
+@pytest.mark.parametrize("name, fault", [(n, f) for n in CELLS for f in FAULTS[n]],
+                         ids=[f"{n}-{f}" for n in CELLS for f in FAULTS[n]])
 def test_fault_is_not_correct(name, fault, monkeypatch, tiny):
-    fault(monkeypatch)
+    faults.FAULTS[fault](monkeypatch)
     result = _run(tiny, name)
     assert not result["correct"], result["checks"]
 

@@ -144,3 +144,20 @@ def test_weighted_pose():
     assert torch.allclose(est_q, torch.tensor([1.0, 0, 0, 0], dtype=torch.float64))
     qz = torch.tensor([half, 0.0, 0.0, half], dtype=torch.float64)
     assert estimate.rotation_gap(qz, est_q) == pytest.approx(math.pi / 2)
+
+
+def test_mcmc_states_and_moves():
+    """Two chains of five steps: the first moves at steps 2 and 4, the
+    second never; each step's state is the distinct state it holds."""
+    from portbench.reference.checks import mcmc
+
+    t = torch.zeros(5, 2, 3)
+    r = torch.tensor([1.0, 0.0, 0.0, 0.0]).expand(5, 2, 4).clone()
+    t[2:, 0, 0] = 0.1
+    r[4:, 0] = torch.tensor([0.0, 1.0, 0.0, 0.0])
+    moved, first, state = mcmc.states(t, r)
+    assert moved[:, 0].tolist() == [True, False, True, False, True]
+    assert moved[:, 1].tolist() == [True, False, False, False, False]
+    # flat (step, chain) indices: chain 0's states start at 0, 4, 8; chain 1's at 1
+    assert first.tolist() == [0, 1, 4, 8]
+    assert state.reshape(5, 2).tolist() == [[0, 1], [0, 1], [2, 1], [2, 1], [3, 1]]

@@ -8,7 +8,8 @@ import torch
 
 from portbench import cells, run
 
-CELLS = ["synthcad_smc_mh.bop", "track_coordinate.synth120", "synthcad_smc_mh.res100_p1000"]
+CELLS = ["synthcad_smc_mh.bop", "track_coordinate.synth120", "synthcad_smc_mh.res100_p1000",
+         "synthcad_mh.bop"]
 
 
 def test_without_a_card_no_result(capsys, monkeypatch):
