@@ -38,6 +38,7 @@ from typing import Any
 import torch
 
 from .. import quaternions as quat
+from .. import telemetry
 from ..camera import crop_camera
 from ..capture import ChainRunner
 from ..convert import stream_from_numpy
@@ -54,7 +55,7 @@ from ..samplers import (
     collect_variables,
 )
 from ..samples import Sample
-from ..telemetry import span
+from ..telemetry import count, span
 from ..tempering import ConstantSchedule
 from .fused import fused_posterior
 
@@ -236,6 +237,10 @@ def _pf_samplers(params, kind, device):
     return smc(BootstrapKernel(JointDynamics(sigma_t, sigma_r, params.velocity_decay)))
 
 
+# likelihood evaluations of the whole population a frame, one a sampler block
+_LIKELIHOODS_PER_FRAME = {"coordinate": 2, "bootstrap": 1}
+
+
 # the captured filters, most recently used last: (factory, params, kind,
 # collected variables, stream shape, device, experiment id) -> (experiment
 # reference, runner, frame feed)
@@ -282,7 +287,10 @@ def _run_pf(seed, posterior_fn, params, experiment, depth_imgs, kind, collect_va
     with invalid pixels +inf (``convert.stream_from_numpy``), or a host array
     with invalid pixels <= 0, which is uploaded and converted once. While
     telemetry is on, a captured run is the span ``pf.run``, with the cached
-    filter's lookup or build ``pf.runner`` inside."""
+    filter's lookup or build ``pf.runner`` inside, and counts, by filter
+    kind, ``("pf", kind, "runs")``, the frames it steps (``"frames"``) and
+    the poses it scores (``"poses_scored"``: frames × particles × the
+    kind's likelihood evaluations a frame), all known on the host."""
     dev = resolve_device(device)
     if not isinstance(depth_imgs, torch.Tensor):
         depth_imgs = stream_from_numpy(depth_imgs, dev)
@@ -291,6 +299,12 @@ def _run_pf(seed, posterior_fn, params, experiment, depth_imgs, kind, collect_va
     depth_imgs = depth_imgs.to(torch.float32).contiguous()
     if captured:
         with span("pf.run"):
+            if telemetry.ON:
+                frames = depth_imgs.shape[0] - 1
+                count(("pf", kind, "runs"))
+                count(("pf", kind, "frames"), frames)
+                count(("pf", kind, "poses_scored"),
+                      frames * params.n_particles * _LIKELIHOODS_PER_FRAME[kind])
             with span("pf.runner"):
                 runner, feed = _pf_runner(posterior_fn, params, experiment, depth_imgs[0],
                                           kind, collect_vars, dev)

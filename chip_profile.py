@@ -47,7 +47,8 @@ clocks, and how evenly its slices share the raster's big boxes).
 untraced runs do, with the port's telemetry on from before the set-up to the
 end of the window, and prints the cell's end-to-end metrics beside the host
 loop's split: µs a step outside and inside the graph replay call, the parts
-of a step, the mean spans of a request, the set-up's captures; it stands in
+of a step, the mean spans of a request, the set-up's captures, a tracker's
+runs, frames and scored poses; it stands in
 until the benchmark's own readers compute these numbers, and goes then. Needs
 a CUDA device.
 """
@@ -549,8 +550,9 @@ def telemetry_numbers(setup, window):
     the window's: µs a step (a tracked frame) outside the replay call
     (``runner.advance`` less the replay nanoseconds) and inside it, each
     counted part of a step and their share of the loop, mean spans of a
-    request in ms, the set-up's span totals (s) and capture self time, and
-    the window's ``render_score`` launches beside their plans' paths."""
+    request in ms, the set-up's span totals (s) and capture self time, the
+    window's ``render_score`` launches beside their plans' paths, and its
+    particle filters' runs, frames and scored poses by kind."""
     counts, spans = window["counts"], _span_totals(window["spans"])
     steps = counts[("runner", "steps")]
     requests = sum(1 for sp in window["spans"] if sp["parent"] == -1 and sp["name"] in ROOTS)
@@ -572,6 +574,7 @@ def telemetry_numbers(setup, window):
         "render_score_launches": sum(v for k, v in counts.items() if k[0] == "render_score"),
         "render_score_paths": {k[1]: v for k, v in counts.items()
                                if k[0] == "render_score_path"},
+        "pf": {"/".join(k[1:]): v for k, v in counts.items() if k[0] == "pf"},
         "dropped": setup["dropped"] + window["dropped"],
     }
 
