@@ -43,15 +43,13 @@ a call) is out of the way. Between the two, ``render_depth``'s face slices
 are swept
 (device time for forced slice counts beside the automatic plan's, its phase
 clocks, and how evenly its slices share the raster's big boxes).
-Last of the checked rows, the SMC population update kernel
-(``csrc/smc_update.cu``) at the four SMC cells' shapes beside the plain
-block it replaces, each replayed from a CUDA graph (``smc_update_row``).
+The SMC population update kernel's rows are phase 19 of ``chip_smoke.py``.
 ``telemetry`` runs one cell of the benchmark (``portbench/``) as its
 untraced runs do, with the port's telemetry on from before the set-up to the
 end of the window, and prints the cell's end-to-end metrics beside the host
 loop's split: µs a step outside and inside the graph replay call, the parts
 of a step, the mean spans of a request, the set-up's captures, a tracker's
-runs, frames and scored poses; it stands in
+runs, frames and scored poses (``parity_cases.telemetry_cell``); it stands in
 until the benchmark's own readers compute these numbers, and goes then. Needs
 a CUDA device.
 """
@@ -76,6 +74,7 @@ def profiled(fn):
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+    from portbench.trace import HOST_LAUNCH_CALLS
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -92,7 +91,7 @@ def profiled(fn):
                 continue
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
-        elif e.name in chip_smoke.HOST_LAUNCH_CALLS:
+        elif e.name in HOST_LAUNCH_CALLS:
             host[e.name] += 1
     busy_s = sum(v[0] for v in by_name.values()) * 1e-6
 
@@ -194,35 +193,6 @@ def profile_tracking(card, n_frames=120, width=80, height=60):
                     "n_particles": params.n_particles, "frames": n_frames - 1,
                     "fps": (n_frames - 1) / wall},
                    wall, prof_wall, busy_s, n_kernels, n_frames - 1, "frame", top, raster)
-
-
-def graph_ms(fn, n=50, reps=20):
-    """Milliseconds per call with the host out of the way: ``n`` calls of
-    ``fn`` captured into one CUDA graph, replayed ``reps`` times between two
-    events. None (with the reason printed) if the capture fails."""
-    import torch
-
-    from bayesianposeestimation.jl_tpu_torch import telemetry
-
-    try:
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with telemetry.recording(), torch.cuda.graph(graph):  # the capture launches nothing
-            for _ in range(n):
-                fn()
-        graph.replay()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / (n * reps)
-    except Exception as e:  # a measurement aid: report, do not hide the other rows
-        print(f"graph capture failed: {type(e).__name__}: {e}", file=sys.stderr)
-        return None
 
 
 PHASES = ("vertices", "faces", "raster", "epilogue")
@@ -328,7 +298,8 @@ def kernel_rows(card, graphs=False):
 
             epilogue = SCORE_VARIANTS[variant]
         if graphs:
-            print(json.dumps({"row": name, "card": card, "graph_ms_per_launch": graph_ms(run)}))
+            print(json.dumps({"row": name, "card": card,
+                              "graph_ms_per_launch": chip_smoke.graph_ms(run)}))
             continue
         out, ref = run(), plain()
         sync()
@@ -393,7 +364,7 @@ def res100_row(card, n_poses=1000):
         dev_ms = chip_smoke.device_ms(run, 20)
         timed[name] = {"plan": plan, "runtime_blocks_per_sm": chip_smoke.occupancy(plan),
                        "device_ms": dev_ms, "ms": chip_smoke.time_ms(run, 20, sync),
-                       "graph_ms": graph_ms(run, n=20, reps=5),
+                       "graph_ms": chip_smoke.graph_ms(run, n=20, reps=5),
                        "share_of_bound": b_ms / dev_ms if dev_ms else None,
                        "phases": phase_shares(run, n=5)}
     print(json.dumps({"row": f"render_score[association] res100 shape, {args[1].shape[0]} "
@@ -401,22 +372,6 @@ def res100_row(card, n_poses=1000):
                       "check": check, "failures": failures, "bound_ms": b_ms, "bound_by": b_by,
                       "live_pairs": pairs, **timed}))
     return not failures
-
-
-def smc_update_row(card):
-    """The SMC population update kernel (csrc/smc_update.cu) at the four SMC
-    cells' shapes (``chip_smoke.smc_update_rows``): checked against the plain
-    block, then each replayed from a CUDA graph, the plain block's kernels a
-    call, the kernel's device time, registers and bound. True if every
-    shape agrees with the plain version and the profiler saw the kernel
-    once a call, with a device time."""
-    import chip_smoke
-
-    rows = chip_smoke.smc_update_rows("cuda", card)
-    for row in rows:
-        print(json.dumps({"row": f"smc_update {row['particles']} particles ({row['cell']})",
-                          **row}))
-    return all(row["check"]["ok"] and row["profiled_ok"] for row in rows)
 
 
 def slice_box_load(args, backface_cull, slices):
@@ -488,8 +443,8 @@ def face_slice_sweep(card):
 
             same = bool(torch.equal(run(), ref))
             ok = ok and same
-            by_slices[s] = {"device_ms": chip_smoke.device_ms(run, 30), "graph_ms": graph_ms(run),
-                            "bitwise_equal": same}
+            by_slices[s] = {"device_ms": chip_smoke.device_ms(run, 30),
+                            "graph_ms": chip_smoke.graph_ms(run), "bitwise_equal": same}
 
         def run_auto():
             return render_depth(*args, backface_cull=cull, device=dev)
@@ -497,7 +452,7 @@ def face_slice_sweep(card):
         print(json.dumps({"sweep": label, "card": card, "auto_face_slices": auto["face_slices"],
                           "auto_face_cap": auto["face_cap"],
                           "auto_device_ms": chip_smoke.device_ms(run_auto, 30),
-                          "auto_graph_ms": graph_ms(run_auto),
+                          "auto_graph_ms": chip_smoke.graph_ms(run_auto),
                           "by_face_slices": by_slices, "auto_phases": phase_shares(run_auto),
                           "auto_box_load": slice_box_load(args, cull, auto["face_slices"])}))
     return ok
@@ -515,8 +470,9 @@ def evaluation_turns(card):
     from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
     from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
     from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact, savename
+    from parity_cases import bop_val_script
 
-    bopval = chip_smoke.bop_val_script()
+    bopval = bop_val_script()
     params = Parameters(device="cuda")
     raws = [load_artifact(chip_smoke.JAX_RAW / (savename(dict(
         dataset="synthcad", sampler=s, scene_id=n, testset="val")) + ".npz"))
@@ -549,97 +505,6 @@ def evaluation_turns(card):
                       "card": card, "turns": turns}))
 
 
-ROOTS = ("image.call", "pf.run")  # the port's request roots
-
-
-def _span_totals(spans):
-    """{name: [spans, total s, self s]} of the closed spans."""
-    out = {}
-    for sp in spans:
-        if sp["end_ns"] is not None:
-            row = out.setdefault(sp["name"], [0, 0.0, 0.0])
-            row[0] += 1
-            row[1] += (sp["end_ns"] - sp["start_ns"]) * 1e-9
-            row[2] += sp["self_ns"] * 1e-9
-    return out
-
-
-def telemetry_numbers(setup, window):
-    """The host loop's split from two telemetry snapshots, the set-up's and
-    the window's: µs a step (a tracked frame) outside the replay call
-    (``runner.advance`` less the replay nanoseconds) and inside it, each
-    counted part of a step and their share of the loop, mean spans of a
-    request in ms, the set-up's span totals (s) and capture self time, the
-    window's ``render_score`` launches beside their plans' paths, the SMC
-    population updates by path, and its
-    particle filters' runs, frames and scored poses by kind."""
-    counts, spans = window["counts"], _span_totals(window["spans"])
-    steps = counts[("runner", "steps")]
-    requests = sum(1 for sp in window["spans"] if sp["parent"] == -1 and sp["name"] in ROOTS)
-    advance_ns = spans.get("runner.advance", [0, 0.0, 0.0])[1] * 1e9
-    parts = {k: counts[("runner", f"{k}_ns")] for k in ("pick", "replay", "report", "feed", "chunk")}
-    setup_spans = _span_totals(setup["spans"])
-    return {
-        "requests": requests, "steps": steps,
-        "runner_host_us": (advance_ns - parts["replay"]) / steps * 1e-3 if steps else None,
-        "replay_call_us": parts["replay"] / steps * 1e-3 if steps else None,
-        "parts_us": {k: v / steps * 1e-3 for k, v in parts.items()} if steps else {},
-        "parts_share_of_loop": sum(parts.values()) / advance_ns if advance_ns else None,
-        "picks": {k[2]: v for k, v in counts.items() if k[:2] == ("runner", "picks")},
-        "request_ms": {k: v[1] / requests * 1e3 for k, v in spans.items()} if requests else {},
-        "setup_s": setup_spans,
-        "setup_capture_s": setup_spans.get("runner.capture", [0, 0.0, 0.0])[2],
-        "setup_counts": {"/".join(k): v for k, v in setup["counts"].items()
-                         if k[0] in ("graph", "library")},
-        "render_score_launches": sum(v for k, v in counts.items() if k[0] == "render_score"),
-        "render_score_paths": {k[1]: v for k, v in counts.items()
-                               if k[0] == "render_score_path"},
-        "smc_update_paths": {k[1]: v for k, v in counts.items() if k[0] == "smc_update_path"},
-        "pf": {"/".join(k[1:]): v for k, v in counts.items() if k[0] == "pf"},
-        "dropped": setup["dropped"] + window["dropped"],
-    }
-
-
-def telemetry_cell(name, seed, seconds, device="cuda", cell=None, config=None):
-    """One benchmark cell served as its untraced runs serve it, with the
-    port's telemetry on from before the set-up to the end of the window (the
-    set-up's spans taken apart by a snapshot after ``Entry.setup``): the
-    cell's end-to-end metrics, ``correct`` and ``telemetry_numbers``.
-    ``cell`` / ``config`` in place of the cell files' (a test size)."""
-    import torch
-
-    from bayesianposeestimation.jl_tpu_torch import telemetry
-    from portbench import cells
-    from portbench.run import run_cell
-
-    if cell is None:
-        cell, config = cells.load(name)
-    entry = cells.entry_module(config).Entry
-    setup, snaps = entry.setup, {}
-
-    def setup_then_snapshot(self):
-        setup(self)
-        if device != "cpu":
-            torch.cuda.synchronize()
-        snaps["setup"] = telemetry.snapshot()
-        telemetry.reset()
-
-    entry.setup = setup_then_snapshot
-    telemetry.reset()
-    telemetry.enable()
-    try:
-        result, _, _ = run_cell(cell, config, seed, seconds, False, device)
-        window = telemetry.snapshot()  # the check after the window calls nothing of the port
-    finally:
-        telemetry.disable()
-        telemetry.reset()
-        entry.setup = setup
-    return {"cell": name, "seed": seed, "correct": result["correct"],
-            "failed": result["failed"], "attempted": result["attempted"],
-            "metrics": {k: v["value"] for k, v in result["metrics"].items()},
-            "telemetry": telemetry_numbers(snaps["setup"], window)}
-
-
 def main() -> int:
     if sys.argv[1:2] == ["telemetry"]:
         import portbench.run  # noqa: F401  (the harness's thread settings, set before torch's import)
@@ -659,8 +524,7 @@ def main() -> int:
         # anything or loaded the build with phase clocks
         profile_chain(card)
         profile_tracking(card)
-        if not (kernel_rows(card) and res100_row(card) and face_slice_sweep(card)
-                and smc_update_row(card)):
+        if not (kernel_rows(card) and res100_row(card) and face_slice_sweep(card)):
             print("chip_profile: a kernel row disagrees with its plain version",
                   file=sys.stderr)
             return 1
@@ -668,6 +532,8 @@ def main() -> int:
     elif sys.argv[1:] == ["evaluation"]:
         evaluation_turns(card)
     elif sys.argv[1:2] == ["telemetry"] and len(sys.argv) in (4, 5):
+        from parity_cases import telemetry_cell
+
         seconds = float(sys.argv[4]) if len(sys.argv) == 5 else 35.0
         out = telemetry_cell(sys.argv[2], int(sys.argv[3]) % 2**63, seconds)
         print(json.dumps({"card": card, **out}))

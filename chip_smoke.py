@@ -263,26 +263,48 @@ from pathlib import Path
 # shares with bench_torch.py (standard library only at import)
 from bench_torch import EvaluationCount, bench_scene, run_chain
 
+# the cases and comparisons the CPU tests apply too (standard library only at
+# import)
+from parity_cases import (
+    ADDS_REL_TOL,
+    BOP_RUNS,
+    HYPEROPT_EXPERIMENTS,
+    JAX_QUATERNIONS,
+    REEVALUATED_BOP_RUNS,
+    REEVALUATED_HYPEROPT,
+    SMC_UPDATE_FIELDS,
+    SMC_UPDATE_SHAPES,
+    SMC_UPDATE_SIZES,
+    SWEEP_ADDS_REL_TOL,
+    SWEEP_EXPERIMENTS,
+    SWEEP_VSD_ABS_TOL,
+    THETA_MARGIN,
+    VSD_ABS_TOL,
+    bop_run_args,
+    bop_val_script,
+    compare_errors,
+    compare_generated_scene,
+    compare_smc_update,
+    gt_quaternions,
+    hyperopt_argv,
+    live_pairs,
+    read_trials,
+    smc_update_cases,
+    smc_update_inputs,
+    smc_update_kernel,
+    smc_update_plain,
+    smc_update_state,
+    sweep_reference,
+)
+
 REPO = Path(__file__).resolve().parent
 PKG = "bayesianposeestimation/jl_tpu_torch"
 PALLAS = "bayesianposeestimation/jl_tpu/ops/pallas_raster.py"
 
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
-# tensor cores, and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# fp32 operations per (live triangle, pixel) pair in the raster loop:
-# w0 4, w1 4, w2 2, depth 4, max 1 (the three compares not counted)
-OPS_PER_PAIR = 15
-OPS_PER_FACE = 90  # transform, projection, edges, culls, area division
-# fp32 operations (transcendentals counted as one) per pixel of each score
-# epilogue, sums included: a normal logpdf ~7, the exponential tail ~16, an
-# association ~12, a weighted mixture ~15, a smooth tail ~78 (two log_ndtr
-# of ~20 each); the smooth epilogue evaluates a smooth tail twice (with the
-# association and the pixel sigma)
-OPS_PER_PIXEL = {"fixed_o": 40, "association": 60, "smooth_association": 200,
-                 "uniform_fixed_o": 25, "uniform_association": 45,
-                 "depth": 2}  # the depth-only kernel: a reciprocal and a select
+# The roofline's peaks and its operations a pair, a face and a score pixel
+# are the benchmark's (portbench/roofline.py). The depth-only kernel's count
+# is chip_smoke.py's own: the benchmark counts score launches only.
+DEPTH_OPS_PER_PIXEL = 2  # a reciprocal and a select
 MU_REL_TOL = 1e-6  # relative depth difference, kernel image vs plain version
 TRACK_FRAMES = 120  # scripts/torch_ros_particle_filter.py's default stream
 TOL = dict(rtol=1e-3, atol=0.2)
@@ -391,6 +413,35 @@ def device_ms(fn, n, tries=3):
     return None
 
 
+def graph_ms(fn, n=50, reps=20):
+    """Milliseconds per call with the host out of the way: ``n`` calls of
+    ``fn`` captured into one CUDA graph, replayed ``reps`` times between two
+    events. None (with the reason printed) if the capture fails."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import telemetry
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with telemetry.recording(), torch.cuda.graph(graph):  # the capture launches nothing
+            for _ in range(n):
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (n * reps)
+    except Exception as e:  # a measurement aid: report, do not hide the other rows
+        print(f"graph capture failed: {type(e).__name__}: {e}", file=sys.stderr)
+        return None
+
+
 def on_nan_block(fn):
     """``fn()`` twice: the first output is filled with NaN and freed, and the
     caching allocator places the second on the same block, so that a
@@ -406,33 +457,10 @@ def on_nan_block(fn):
 
 def is_raster_kernel(name):
     """Whether a profiled CUDA kernel is one of csrc/render_score.cu."""
-    return any(k in name for k in ("render_score_kernel", "score_background_kernel",
-                                   "depth_resolve_kernel"))
+    from portbench.trace import RASTER_KERNELS
 
-
-def live_pairs(verts, faces, cam, t, q, backface_cull=True):
-    """(live triangle, pixel) pairs a z-buffer must test on these poses: for
-    each live triangle (back faces too where ``backface_cull`` is off), the
-    pixel centres inside its bounding box clipped to the viewport."""
-    import torch
-
-    from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import (
-        project_vertices,
-        triangle_forms,
-    )
-
-    valid, _ = triangle_forms(verts, faces, cam, t, q, backface_cull=backface_cull)
-    u, v, _ = project_vertices(verts, faces, cam, t, q)
-
-    def extent(c, size):
-        # pixel centres lie at k - (size - 1) / 2 for k in [0, size)
-        off = (size - 1) / 2.0
-        lo = torch.ceil(torch.minimum(torch.minimum(c[0], c[1]), c[2]) + off).clamp(min=0)
-        hi = torch.floor(torch.maximum(torch.maximum(c[0], c[1]), c[2]) + off).clamp(max=size - 1)
-        return (hi - lo + 1).clamp(min=0)
-
-    area = extent(u, cam.width) * extent(v, cam.height)
-    return int(torch.where(valid, area, torch.zeros_like(area)).sum())
+    # the benchmark's raster kernels, and render_depth's resolve, which no cell launches
+    return any(k in name for k in (*RASTER_KERNELS, "depth_resolve_kernel"))
 
 
 def bound_ms(args, epilogue="association", hyper=False, mu=False, backface_cull=True):
@@ -442,17 +470,21 @@ def bound_ms(args, epilogue="association", hyper=False, mu=False, backface_cull=
     pixels in each live triangle's clipped bounding box. ``epilogue="depth"``
     is the depth-only kernel (no observation, prior or sums); ``mu`` adds the
     [N, H, W] image that the kernel writes."""
+    from portbench import roofline
+
     verts, faces, cam, t, q = args[:5]
     n, f = t.shape[0], faces.shape[0]
     p = cam.height * cam.width
+    # back faces are chip_smoke.py's own: the benchmark's score launches cull them
     pairs = live_pairs(verts, faces, cam, t, q, backface_cull)
-    ops = (pairs * OPS_PER_PAIR + n * f * OPS_PER_FACE
-           + n * p * OPS_PER_PIXEL[epilogue])
     score = epilogue != "depth"
+    per_pixel = roofline.OPS_PER_PIXEL[epilogue] if score else DEPTH_OPS_PER_PIXEL
+    ops = pairs * roofline.OPS_PER_PAIR + n * f * roofline.OPS_PER_FACE + n * p * per_pixel
+    # the image's bytes are chip_smoke.py's own: the benchmark's launches write no image
     nbytes = (verts.numel() + faces.numel() + t.numel() + q.numel()
               + (2 * p + 2 * n if score else 0) + (2 if hyper else 0)
               + (n * p if mu or not score else 0)) * 4
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = ops / roofline.PEAK_FP32_FLOPS, nbytes / roofline.PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops,
             pairs)
 
@@ -1577,54 +1609,6 @@ SYNTHCAD = dict(dataset="synthcad", testset="val", experiment="smc_bop_cad",
                 scenes=BOP_SCENES, obj_id=1, phase="7a", exact_recall=False)
 HARDVIS = dict(dataset="synth", testset="hardvis", experiment="hard_cases_vis", scenes=(1, 2),
                obj_id=3, phase="10", exact_recall=True)
-ADDS_REL_TOL = 1e-4  # ADD-S, relative
-VSD_ABS_TOL = 0.01  # VSD and every VSDBOP tau, absolute (a few pixels of a crop)
-THETA_MARGIN = 0.01  # entries this close to a threshold may pass on one side only
-
-
-def bop_val_script():
-    sys.path.insert(0, str(REPO / "scripts"))
-    import torch_smc_bop_val
-
-    return torch_smc_bop_val
-
-
-def compare_errors(ours, ref, adds_tol=ADDS_REL_TOL, vsd_tol=VSD_ABS_TOL):
-    """The port's matched errors of one scene against the JAX package's:
-    (list of failed checks, max ADD-S relative |d|, max VSD / VSDBOP |d|, the
-    number of entries within THETA_MARGIN of a threshold). Visibilities are
-    compared where the JAX errors store them."""
-    import numpy as np
-
-    from bayesianposeestimation.jl_tpu_torch.utils import evaluation as ev
-
-    bad = []
-    if "visib" in ref and not np.array_equal(ours["visib"], ref["visib"]):
-        bad.append("visib")
-    worst = {"adds": 0.0, "vsd": 0.0}
-    near_total = 0
-    for key, theta in (("adds", ev.ADDS_THETA), ("vsd", ev.BOP18_THETA),
-                       ("vsdbop", np.asarray(ev.BOP19_THRESHOLDS))):
-        a, b = np.asarray(ours[key]), np.asarray(ref[key])
-        if a.shape != b.shape or not np.array_equal(np.isinf(a), np.isinf(b)):
-            bad.append(f"{key} shape or unmatched gts")
-            continue
-        fin = np.isfinite(b)
-        d = np.abs(a - b)[fin]
-        if key == "adds":
-            rel = d / np.maximum(np.abs(b[fin]), 1e-30)
-            worst["adds"] = max(worst["adds"], float(rel.max(initial=0.0)))
-            if rel.max(initial=0.0) > adds_tol:
-                bad.append(f"adds relative {rel.max():.3g}")
-        else:
-            worst["vsd"] = max(worst["vsd"], float(d.max(initial=0.0)))
-            if d.max(initial=0.0) > vsd_tol:
-                bad.append(f"{key} |d| {d.max():.3g}")
-        near = np.abs(b - theta) < THETA_MARGIN
-        near_total += int(near.sum())
-        if ((a < theta) != (b < theta))[~near].any():
-            bad.append(f"{key} counts under the threshold")
-    return bad, worst["adds"], worst["vsd"], near_total
 
 
 def evaluation_depth_args(device, dataset="synthcad", testset="val", obj_id=1, raw=JAX_RAW):
@@ -2613,33 +2597,6 @@ def graph_phase(device, failures, smi):
 
 # -- phase 14: the experiment sweeps and particle sharding ----------------------
 
-# the experiment sweeps' JAX runs whose estimates and errors are checked in
-# (data/exp_raw/<name>, data/exp_pro/<name>): each experiment's script and the
-# arguments the JAX run used (read off its artifacts' __config__), and the
-# table it wrote
-SWEEP_EXPERIMENTS = {
-    "smc_benchmark": ("torch_smc_benchmark", [], "recall_vs_budget.csv"),
-    "smc_benchmark_cad": ("torch_smc_benchmark", ["--dataset", "synthcad", "--particles", "10",
-                                                  "--experiment-name", "smc_benchmark_cad"],
-                          None),
-    "smc_benchmark_steri": ("torch_smc_benchmark_steri", ["--particles", "100", "--budgets",
-                                                          "0.25", "0.5"],
-                            "recall_vs_budget.csv"),
-    "mcmc_benchmark": ("torch_mcmc_benchmark", [], "recall_vs_time.csv"),
-    "mcmc_baseline": ("torch_mcmc_baseline", [], "sampler_recall.csv"),
-    "smc_mh_baseline": ("torch_smc_mh_baseline", [], "baseline_recall.csv"),
-    "smc_mh_resolution": ("torch_smc_mh_resolution", ["--resolutions", "15", "30", "60"],
-                          "resolution_recall.csv"),
-    "smc_observation": ("torch_smc_observation", ["--variants", "association", "smooth",
-                                                  "simple", "--o-priors", "mask"],
-                        "observation_recall.csv"),
-    "smc_priors": ("torch_smc_priors", [], "priors_recall.csv"),
-}
-# the JAX package's errors of the artifacts whose checked-in errors its
-# evaluation does not reproduce today (scripts/reevaluate_errors.py)
-REEVALUATED = REPO / "tests/fixtures/reevaluated_errors.npz"
-SWEEP_ADDS_REL_TOL = ADDS_REL_TOL  # phase 7a's (the card sums in another order: ~2e-5)
-SWEEP_VSD_ABS_TOL = 0.005
 # phase 14b: one config of each script on scene 1 at its real settings
 # (script, its arguments, the config's distinguishing keys)
 SWEEP_RUNS = (
@@ -2667,21 +2624,6 @@ def sweep_script(name):
     script = importlib.import_module(name)
     return script, (importlib.import_module("torch_smc_benchmark")
                     if name == "torch_smc_benchmark_steri" else script)
-
-
-def sweep_reference(name, file, fixture=REEVALUATED):
-    """The JAX errors an artifact is held to: the JAX package's evaluation
-    of today (in ``fixture``) where it does not reproduce the checked-in
-    errors, else those. Returns (errors, whether they are the re-evaluation)."""
-    import numpy as np
-
-    from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact
-
-    key = f"{name}/{file}"
-    with np.load(fixture) as f:
-        if f"{key}/vsd" in f.files:
-            return {k: f[f"{key}/{k}"] for k in ("adds", "vsd", "vsdbop", "visib")}, True
-    return load_artifact(REPO / "data/exp_pro" / name / "errors" / file), False
 
 
 def csv_equal(value, text):
@@ -3012,57 +2954,9 @@ def sweeps_phase(device, failures, smi):
 
 # -- phase 15: the hyperparameter searches and the synthetic BOP generator ------
 
-# the JAX package's checked-in searches (data/exp_raw/<name>, data/exp_pro/<name>):
-# each search's script and the arguments its run used, read off its artifacts
-# (dataset, split and scenes from the configs, the trial count from
-# trials.csv, the time budget from n_steps x step_time: 0.22 s of 0.25 s on
-# synth, 0.38-0.44 s of 0.5 s on synthcad); --seed 0 reproduces every
-# candidate of its trials.csv
-HYPEROPT_EXPERIMENTS = {
-    "smc_mh_hyperopt": ("torch_smc_mh_hyperopt", ["--trials", "30", "--scenes", "1"]),
-    "smc_mh_hyperopt_cad": ("torch_smc_mh_hyperopt",
-                            ["--dataset", "synthcad", "--testset", "train", "--scenes", "1", "2",
-                             "3", "--trials", "10", "--time-budget", "0.5",
-                             "--experiment-name", "smc_mh_hyperopt_cad"]),
-    "mcmc_hyperopt_mh_sampler": ("torch_mcmc_baseline_hyperopt",
-                                 ["--trials", "8", "--samplers", "mh_sampler"]),
-    "mcmc_hyperopt_mtm_sampler": ("torch_mcmc_baseline_hyperopt",
-                                  ["--trials", "8", "--samplers", "mtm_sampler"]),
-    "mcmc_hyperopt_cad_mh": ("torch_mcmc_baseline_hyperopt",
-                             ["--dataset", "synthcad", "--testset", "train", "--scenes", "1", "2",
-                              "--trials", "8", "--time-budget", "0.5", "--samplers",
-                              "mh_sampler", "--experiment-names", "mcmc_hyperopt_cad_mh"]),
-    "mcmc_hyperopt_cad_mtm": ("torch_mcmc_baseline_hyperopt",
-                              ["--dataset", "synthcad", "--testset", "train", "--scenes", "1",
-                               "2", "--trials", "8", "--time-budget", "0.5", "--samplers",
-                               "mtm_sampler", "--experiment-names", "mcmc_hyperopt_cad_mtm"]),
-}
-REEVALUATED_HYPEROPT = REPO / "tests/fixtures/reevaluated_errors_hyperopt.npz"
 # phase 15b: these searches with 2 trials on scene 1 of their split
 HYPEROPT_RUNS = ("smc_mh_hyperopt", "smc_mh_hyperopt_cad", "mcmc_hyperopt_mh_sampler",
                  "mcmc_hyperopt_mtm_sampler")
-# the JAX script's rotation draws at --seed 77 (synthcad train), for phase 15d
-JAX_QUATERNIONS = REPO / "tests/fixtures/jax_generator_quaternions.json"
-# generated scenes against the checked-in ones: per-mask IoU, visible
-# fraction, depth PNG units where both scenes' masks agree
-GEN_MASK_IOU = 0.98
-GEN_VISIB_TOL = 0.01
-GEN_DEPTH_UNITS = 1
-
-
-def hyperopt_argv(name, extra=()):
-    """``torch_smc_mh_hyperopt.py``'s arguments of a checked-in search at
-    --seed 0 (the MCMC script's through its ``search_argvs``), then
-    ``extra`` (later options win)."""
-    import importlib
-
-    sys.path.insert(0, str(REPO / "scripts"))
-    script, argv = HYPEROPT_EXPERIMENTS[name]
-    argv = [*argv, "--seed", "0"]
-    if script == "torch_mcmc_baseline_hyperopt":
-        mcmc = importlib.import_module(script)
-        [argv] = mcmc.search_argvs(mcmc.parse_args(argv))
-    return [*argv, *extra]
 
 
 def hyperopt_script():
@@ -3070,15 +2964,6 @@ def hyperopt_script():
     import torch_smc_mh_hyperopt
 
     return torch_smc_mh_hyperopt
-
-
-def read_trials(path):
-    """A trials.csv as a list of dicts of floats (trial as int)."""
-    import csv
-
-    with open(path, newline="") as fh:
-        return [{k: (int(v) if k == "trial" else float(v)) for k, v in r.items()}
-                for r in csv.DictReader(fh)]
 
 
 def hyperopt_eval_parity(device, failures):
@@ -3259,84 +3144,6 @@ def hyperopt_runs(device, failures, smi, workdir):
     return rows
 
 
-def compare_generated_scene(out_dir, ref_dir, img_ids):
-    """A generated scene directory against a checked-in one, image by image:
-    (failed checks, measured differences). Obj ids and instance counts must
-    be equal, cam_t_m2c within 1e-9 mm, cam_R_m2c within 1e-5, the cameras
-    equal, each mask_visib within GEN_MASK_IOU, each visib_fract within
-    GEN_VISIB_TOL, each depth PNG within GEN_DEPTH_UNITS wherever both
-    scenes' masks (the union over the image's instances) agree."""
-    import numpy as np
-
-    from bayesianposeestimation.jl_tpu_torch.utils.png import read_png
-
-    out_dir, ref_dir = Path(out_dir), Path(ref_dir)
-
-    def load(d, name):
-        return json.loads((d / name).read_text())
-
-    gt_o, gt_r = load(out_dir, "scene_gt.json"), load(ref_dir, "scene_gt.json")
-    info_o, info_r = load(out_dir, "scene_gt_info.json"), load(ref_dir, "scene_gt_info.json")
-    cam_o, cam_r = load(out_dir, "scene_camera.json"), load(ref_dir, "scene_camera.json")
-    bad = []
-    stats = dict(t_mm=0.0, R=0.0, min_iou=1.0, mask_px=0, visib=0.0, depth_units=0,
-                 depth_px_over=0, depth_units_all=0)
-    for k in (str(i) for i in img_ids):
-        if [g["obj_id"] for g in gt_o[k]] != [g["obj_id"] for g in gt_r[k]]:
-            bad.append(f"image {k}: obj ids or instance count")
-            continue
-        if cam_o[k] != cam_r[k]:
-            bad.append(f"image {k}: camera")
-        union_o = union_r = 0
-        for j, (a, b) in enumerate(zip(gt_o[k], gt_r[k])):
-            stats["t_mm"] = max(stats["t_mm"], float(np.abs(
-                np.subtract(a["cam_t_m2c"], b["cam_t_m2c"])).max()))
-            stats["R"] = max(stats["R"], float(np.abs(
-                np.subtract(a["cam_R_m2c"], b["cam_R_m2c"])).max()))
-            m_o = read_png(out_dir / "mask_visib" / f"{int(k):06d}_{j:06d}.png") > 0
-            m_r = read_png(ref_dir / "mask_visib" / f"{int(k):06d}_{j:06d}.png") > 0
-            iou = (m_o & m_r).sum() / max((m_o | m_r).sum(), 1)
-            stats["min_iou"] = min(stats["min_iou"], float(iou))
-            stats["mask_px"] = max(stats["mask_px"], int((m_o ^ m_r).sum()))
-            stats["visib"] = max(stats["visib"], abs(info_o[k][j]["visib_fract"]
-                                                     - info_r[k][j]["visib_fract"]))
-            union_o, union_r = union_o | m_o, union_r | m_r
-        d_o = read_png(out_dir / "depth" / f"{int(k):06d}.png").astype(np.int64)
-        d_r = read_png(ref_dir / "depth" / f"{int(k):06d}.png").astype(np.int64)
-        diff = np.abs(d_o - d_r)
-        agree = union_o == union_r
-        stats["depth_units"] = max(stats["depth_units"], int(diff[agree].max()))
-        stats["depth_px_over"] += int((diff[agree] > GEN_DEPTH_UNITS).sum())
-        stats["depth_units_all"] = max(stats["depth_units_all"], int(diff.max()))
-    if cam_o.keys() != {str(i) for i in img_ids} or gt_o.keys() != cam_o.keys():
-        bad.append(f"images {sorted(gt_o)} written, not {list(img_ids)}")
-    if stats["t_mm"] > 1e-9:
-        bad.append(f"cam_t_m2c |d| {stats['t_mm']} mm")
-    if stats["R"] > 1e-5:
-        bad.append(f"cam_R_m2c |d| {stats['R']}")
-    if stats["min_iou"] < GEN_MASK_IOU:
-        bad.append(f"mask IoU {stats['min_iou']:.4f}")
-    if stats["visib"] > GEN_VISIB_TOL:
-        bad.append(f"visib_fract |d| {stats['visib']:.4f}")
-    if stats["depth_px_over"]:
-        bad.append(f"{stats['depth_px_over']} depth pixels over {GEN_DEPTH_UNITS} unit where the "
-                   f"masks agree")
-    return bad, stats
-
-
-def gt_quaternions(scene_dir):
-    """The rotations of a scene's annotations as quaternions [4], in the
-    order the generator draws them (image by image, instance by instance)."""
-    import torch
-
-    from bayesianposeestimation.jl_tpu_torch import quaternions as quat
-
-    gt = json.loads((Path(scene_dir) / "scene_gt.json").read_text())
-    return [quat.matrix_to_quat(torch.tensor(g["cam_R_m2c"], dtype=torch.float32)
-                                .reshape(3, 3)).numpy()
-            for k in sorted(gt, key=int) for g in gt[k]]
-
-
 def generator_script():
     sys.path.insert(0, str(REPO / "scripts"))
     import torch_make_synthetic_bop
@@ -3434,24 +3241,6 @@ def hyperopt_phase(device, failures, smi):
 
 # -- phase 16: the JAX package's BOP runs without a port counterpart ------------
 
-# the JAX package's runs of scripts/smc_bop_val.py (data/exp_raw/<name>,
-# data/exp_pro/<name>), all smc_mh: each run's arguments, read off its
-# artifacts (split and scenes from the configs; the budget from n_steps x
-# step_time: 0.43-0.47 s of 0.5 s, 0.024 s of 0.05 s and 0.072 s of 0.10 s
-# after the 0.92 safety factor)
-BOP_RUNS = {
-    "smc_bop_val": ["--dataset", "synth", "--testset", "val", "--scenes", "1"],
-    "smc_bop_val2": ["--dataset", "synth", "--testset", "val2", "--scenes", "1", "2", "3"],
-    "smc_bop_val2_b005": ["--dataset", "synth", "--testset", "val2", "--scenes", "1",
-                          "--time-budget", "0.05"],
-    "smc_bop_val2_b010": ["--dataset", "synth", "--testset", "val2", "--scenes", "1",
-                          "--time-budget", "0.1"],
-    "smc_bop_cad_val2": ["--dataset", "synthcad", "--testset", "val2", "--scenes", "1", "2"],
-    "hard_cases": ["--dataset", "synth", "--testset", "hard", "--scenes", "1"],
-}
-# the JAX package's errors of today where the checked-in errors are stale (the
-# six synth artifacts of the val / val2 runs; scripts/reevaluate_errors.py)
-REEVALUATED_BOP_RUNS = REPO / "tests/fixtures/reevaluated_errors_bop_runs.npz"
 # phase 16b: scene_inference on scene 1 of each new split, its first two images
 BOP_RUN_CUTS = ("hard_cases", "smc_bop_val2_b005", "smc_bop_cad_val2")
 CUT_IMAGES = 2
@@ -3463,15 +3252,6 @@ BUDGET_RUNS = (
      {"sampler": "mh_sampler"}),
     ("torch_smc_benchmark", ["--particles", "100", "--budgets", "0.05"], {}),
 )
-
-
-def bop_run_args(name, device="cpu", extra=()):
-    """scripts/torch_smc_bop_val.py's arguments and configs for a JAX run of
-    BOP_RUNS (the configs name its artifacts)."""
-    bopval = bop_val_script()
-    args = bopval.parse_args([*BOP_RUNS[name], "--samplers", "smc_mh", "--experiment-name",
-                              name, "--device", device, *extra])
-    return args, bopval.sweep_configs(args)
 
 
 @contextlib.contextmanager
@@ -3820,11 +3600,6 @@ def figures_phase(device, failures, smi):
 # -- phase 18: the captured chains against the eager loop -----------------------
 
 CAPTURE_REPS = 3  # timed runs of each path after its warm-up
-# the host's calls that put work on the device: kernel launches, graph
-# launches, copies and fills
-HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
-                     "cudaMemsetAsync")
 
 
 def tree_difference(a, b):
@@ -3862,6 +3637,8 @@ def profile_path(fn, n_units):
     a graph replay runs included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from portbench.trace import HOST_LAUNCH_CALLS
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4219,172 +3996,8 @@ def captured_phase(device, failures, smi):
     return out
 
 
-# The SMC population update (phase 19): its field sets, the four SMC cells'
-# shapes (particles, field set), the cases the kernel is held against its
-# plain version in, and the tolerance: each weight, the evidence and the ESS
-# within SMC_UPDATE_TOL of the inputs' largest magnitude (fp32 rounds the
-# log-sum-exp at that scale, and the normalized weights and the ESS inherit
-# its last bit); an index may differ only where its position lies within
-# SMC_UPDATE_CDF_TOL of the plain cdf (the two scans sum in other orders)
-SMC_UPDATE_FIELDS = {"bop": {"t": 3, "r": 4},
-                     "tracker": {"t": 3, "r": 4, "t_dot": 3, "r_dot": 3}}
-SMC_UPDATE_SHAPES = {"synthcad_smc_mh.bop": (100, "bop"),
-                     "track_coordinate.synth120": (600, "tracker"),
-                     "synthcad_smc_mh.res100_p1000": (1000, "bop"),
-                     "track_bootstrap.synth120": (1250, "tracker")}
-SMC_UPDATE_SIZES = (1, 31, 100, 600, 1000, 1024, 1025, 1250)
-SMC_UPDATE_CASES = ("random", "above", "below", "one_finite", "all_neg_inf", "nan_loglike",
-                    "u_zero", "u_top")
-SMC_UPDATE_TOL = 1e-6
-SMC_UPDATE_CDF_TOL = 2.0 ** -20
-
-
-def smc_update_inputs(device, n, field_set, case, seed=0):
-    """One population update's inputs from a seed, f32 on ``device``: the old
-    normalized log-weights and evidence, the increment, the uniform, the
-    fields and the threshold, as a dict. BOP: increments of a tempered
-    step, ~-6 ± 1 nats; tracker: a bootstrap filter's log-likelihoods,
-    ~-4,000 ± 3. ``case`` (``SMC_UPDATE_CASES``): ``above`` / ``below`` put
-    the threshold just under / over the plain ESS (10 tolerances away),
-    ``one_finite`` leaves one increment finite, ``all_neg_inf`` none,
-    ``nan_loglike`` makes one log-likelihood (and its increment) NaN,
-    ``u_zero`` / ``u_top`` draw the uniform 0 / 1 - 2^-24."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng([seed, n, SMC_UPDATE_CASES.index(case),
-                                 list(SMC_UPDATE_FIELDS).index(field_set)])
-    f32 = np.float32
-    offset, scale = (-6.0, 1.0) if field_set == "bop" else (-4000.0, 3.0)
-    old = rng.normal(0.0, 1.0, n)
-    old = old - np.logaddexp.reduce(old)
-    incr = rng.normal(offset, scale, n)
-    log_like = incr.copy() if field_set == "tracker" else rng.normal(-3000.0, 300.0, n)
-    k = int(rng.integers(n))
-    if case == "one_finite":
-        incr[np.arange(n) != k] = -np.inf
-    elif case == "all_neg_inf":
-        incr[:] = -np.inf
-    elif case == "nan_loglike":
-        incr[k] = log_like[k] = np.nan
-    u = {"u_zero": 0.0, "u_top": 1.0 - 2.0 ** -24}.get(case, rng.uniform())
-
-    def on(x):
-        return torch.as_tensor(np.asarray(x, f32)).to(device)
-
-    names = list(SMC_UPDATE_FIELDS[field_set])
-    fields = [on(rng.normal(0.0, 1.0, (n, w))) for w in SMC_UPDATE_FIELDS[field_set].values()]
-    fields += [on(rng.normal(-10.0, 2.0, n)), on(log_like)]
-    inp = {"old_log_weights": on(old), "incr": on(incr), "old_evidence": on(rng.normal(-50.0, 5.0)),
-           "u": on(u), "fields": fields, "names": names, "threshold": math.log(0.5)}
-    if case in ("above", "below"):
-        ess = float(smc_update_plain(inp)[0].log_relative_ess)
-        margin = 10 * SMC_UPDATE_TOL * smc_update_scale(inp)
-        inp["threshold"] = ess - margin if case == "above" else ess + margin
-    return inp
-
-
-def smc_update_scale(inp):
-    """The largest magnitude among an update's inputs (the finite new weights
-    and the old evidence), at least 1: what its tolerance is relative to."""
-    import torch
-
-    w = (inp["old_log_weights"] + inp["incr"]).double()
-    w = w[torch.isfinite(w)]
-    top = float(w.abs().max()) if w.numel() else 0.0
-    return max(1.0, top, abs(float(inp["old_evidence"])))
-
-
-def smc_update_state(inp):
-    """(old SmcState, new Sample) of an update's inputs."""
-    import torch
-
-    from bayesianposeestimation.jl_tpu_torch.samplers.smc import SmcState
-    from bayesianposeestimation.jl_tpu_torch.samples import Sample
-
-    fields = inp["fields"]
-    sample = Sample(dict(zip(inp["names"], fields[:-2])), fields[-2], fields[-1])
-    zero = torch.zeros((), dtype=torch.float32, device=inp["incr"].device)
-    return SmcState(sample, inp["old_log_weights"], inp["old_evidence"], zero, zero), sample
-
-
-def smc_update_plain(inp):
-    """The plain version of one update and what the kernel is checked
-    against: (the new SmcState, the systematic draw's indices, the cdf they
-    were drawn from, the positions)."""
-    import torch
-
-    from bayesianposeestimation.jl_tpu_torch.samplers import smc
-
-    old, sample = smc_update_state(inp)
-    one = torch.ones((), dtype=torch.float32, device=inp["incr"].device)
-    state = smc.update_population_plain(old, inp["incr"], sample, one, inp["u"],
-                                        inp["threshold"])
-    normalized = smc.normalize_log_weights(inp["old_log_weights"] + inp["incr"])
-    idx = smc.systematic_resampling_indices(normalized, inp["u"])
-    n = normalized.shape[0]
-    w = torch.exp(smc.normalize_log_weights(normalized))
-    w = torch.where((w == 0).all(), torch.full_like(w, 1.0 / n), w)
-    cdf = torch.cumsum(w, dim=-1)
-    cdf = cdf / cdf[-1]
-    positions = (inp["u"] + torch.arange(n, dtype=w.dtype, device=w.device)) / n
-    return state, idx, cdf, positions
-
-
-def smc_update_kernel(inp):
-    """``ops/smc_update.smc_update`` on an update's inputs, with the indices:
-    (log_weights, evidence, ESS, fields, indices)."""
-    from bayesianposeestimation.jl_tpu_torch.ops.smc_update import smc_update
-
-    return smc_update(inp["old_log_weights"], inp["incr"], inp["old_evidence"], inp["u"],
-                      inp["fields"], inp["threshold"], return_indices=True)
-
-
-def compare_smc_update(inp, out, plain):
-    """The kernel's update ``out`` (``smc_update_kernel``) against the plain
-    one (``smc_update_plain``) on the same inputs, as a dict with ``ok``:
-    log-weights, evidence and log(ESS/N) within SMC_UPDATE_TOL of the inputs'
-    largest magnitude (NaN and inf where the plain version has them), the
-    same resampling decision, indices equal but where the position lies
-    within SMC_UPDATE_CDF_TOL of the plain cdf, and every field bitwise the
-    rows the kernel's own decision and indices select, equal to the plain
-    version's where the indices agree."""
-    import numpy as np
-    import torch
-
-    lw, ev, ess, fields, idx = out
-    state, p_idx, cdf, pos = plain
-    tol = SMC_UPDATE_TOL * smc_update_scale(inp)
-
-    def gap(a, b):
-        a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
-        same = (np.isnan(a) == np.isnan(b)) & (np.isinf(a) == np.isinf(b))
-        fin = np.isfinite(b) & np.isfinite(a)
-        if not same.all() or not np.array_equal(a[np.isinf(b)], b[np.isinf(b)]):
-            return math.inf
-        return float(np.max(np.abs(a[fin] - b[fin]), initial=0.0))
-
-    gaps = {"weights": gap(lw, state.log_weights), "evidence": gap(ev, state.log_evidence),
-            "ess": gap(ess, state.log_relative_ess)}
-    thr = torch.tensor(inp["threshold"], dtype=torch.float32)
-    do, p_do = bool(ess.cpu() < thr), bool(state.log_relative_ess.cpu() < thr)
-    differ = (idx != p_idx).cpu()
-    c = cdf.double().cpu()
-    near = ((c[None, :] - pos.double().cpu()[:, None]).abs() < SMC_UPDATE_CDF_TOL).any(1)
-    off_cdf = int((differ & ~near).sum())
-    rows = idx if do else torch.arange(idx.shape[0], device=idx.device)
-    agree = ~differ.to(idx.device) | (not do)
-    bitwise = all(torch.equal(f.view(torch.int32), x[rows].view(torch.int32))
-                  for f, x in zip(fields, inp["fields"]))
-    p_fields = [*state.sample.variables.values(), state.sample.log_prob, state.sample.log_like]
-    plain_equal = all(torch.equal(f[agree].view(torch.int32), g[agree].view(torch.int32))
-                      for f, g in zip(fields, p_fields))
-    ok = (all(g <= tol for g in gaps.values()) and do == p_do and off_cdf == 0 and bitwise
-          and plain_equal)
-    return {"ok": ok, "tol": tol, **{f"{k}_gap": v for k, v in gaps.items()},
-            "resampled": do, "plain_resampled": p_do, "indices_differ": int(differ.sum()),
-            "indices_differ_off_cdf": off_cdf, "fields_bitwise": bitwise,
-            "fields_equal_plain": plain_equal}
+# -- phase 19: the SMC population update against its plain version -------------
+# (its cases and their comparison are parity_cases.py's, which the card tests apply too)
 
 
 def kernel_registers(log, kernel):
@@ -4490,9 +4103,9 @@ def smc_update_rows(device, smi, n_graph=50):
     shape."""
     import torch
 
-    import chip_profile
     from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
     from bayesianposeestimation.jl_tpu_torch.samplers import smc
+    from portbench.roofline import PEAK_BYTES_PER_S
 
     log = cuda_raster.build_library()[1]
     prof = smc_update_profile_rows()
@@ -4515,25 +4128,13 @@ def smc_update_rows(device, smi, n_graph=50):
         # weights, evidence, ESS, the rows
         moved = 4 * (2 * n + 2 + n * width) + 4 * (n + 2 + n * width)
         rows.append({"cell": cell, "particles": n, "fields": inp["names"], "card": smi,
-                     "check": res, "kernel_graph_ms": chip_profile.graph_ms(kernel, n=n_graph),
-                     "plain_graph_ms": chip_profile.graph_ms(plain, n=n_graph),
+                     "check": res, "kernel_graph_ms": graph_ms(kernel, n=n_graph),
+                     "plain_graph_ms": graph_ms(plain, n=n_graph),
                      **prof[cell], "profiled_ok": smc_update_profiled_ok(prof[cell]),
                      "bytes": moved, "bound_ms": moved / PEAK_BYTES_PER_S * 1e3,
                      "bound_by": "bytes",
                      "registers": kernel_registers(log, "smc_update_kernel")})
     return rows
-
-
-def smc_update_cases(device, n, field_set):
-    """The kernel against its plain version in every case of
-    ``SMC_UPDATE_CASES`` at ``n`` particles with ``field_set``'s fields:
-    (case, ``compare_smc_update``'s dict) a case."""
-    out = []
-    for case in SMC_UPDATE_CASES:
-        inp = smc_update_inputs(device, n, field_set, case)
-        out.append((case, compare_smc_update(inp, smc_update_kernel(inp),
-                                             smc_update_plain(inp))))
-    return out
 
 
 def smc_update_phase(device, failures, smi):

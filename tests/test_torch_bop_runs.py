@@ -1,5 +1,5 @@
 """Port parity on the JAX package's BOP runs of ``scripts/smc_bop_val.py``
-that had no port counterpart (``chip_smoke.BOP_RUNS``: smc_bop_val,
+that had no port counterpart (``parity_cases.BOP_RUNS``: smc_bop_val,
 smc_bop_val2, smc_bop_val2_b005, smc_bop_val2_b010, smc_bop_cad_val2,
 hard_cases), and the hard-case pin on the port.
 
@@ -39,7 +39,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import torch_smc_bop_val as bopval  # noqa: E402
-from chip_smoke import (  # noqa: E402
+from parity_cases import (  # noqa: E402
     BOP_RUNS,
     REEVALUATED_BOP_RUNS,
     SWEEP_ADDS_REL_TOL,

@@ -21,7 +21,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import torch_smc_bop_val as bopval  # noqa: E402
-from chip_smoke import (  # noqa: E402
+from parity_cases import (  # noqa: E402
     REEVALUATED_BOP_RUNS,
     SWEEP_ADDS_REL_TOL,
     SWEEP_VSD_ABS_TOL,

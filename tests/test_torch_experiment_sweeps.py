@@ -41,7 +41,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import torch_smc_bop_val as bopval  # noqa: E402
-from chip_smoke import SWEEP_EXPERIMENTS  # noqa: E402  (the JAX runs' arguments)
+from parity_cases import SWEEP_EXPERIMENTS  # noqa: E402  (the JAX runs' arguments)
 
 from bayesianposeestimation.jl_tpu_torch.parameters import Parameters  # noqa: E402
 from bayesianposeestimation.jl_tpu_torch.utils.artifacts import (  # noqa: E402

@@ -1,6 +1,6 @@
 """Port parity of the hyperparameter searches, scripts/torch_smc_mh_hyperopt.py
 and scripts/torch_mcmc_baseline_hyperopt.py, against the JAX package's six
-checked-in searches (``chip_smoke.HYPEROPT_EXPERIMENTS``: 108 estimate
+checked-in searches (``parity_cases.HYPEROPT_EXPERIMENTS``: 108 estimate
 artifacts under data/exp_raw/, their errors and trials.csv under
 data/exp_pro/).
 
@@ -41,7 +41,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 import torch_mcmc_baseline_hyperopt as mcmc_hyp  # noqa: E402
 import torch_smc_mh_hyperopt as hyp  # noqa: E402
-from chip_smoke import (  # noqa: E402
+from parity_cases import (  # noqa: E402
     HYPEROPT_EXPERIMENTS,
     REEVALUATED_HYPEROPT,
     hyperopt_argv,

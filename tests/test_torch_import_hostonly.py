@@ -2,9 +2,9 @@
 
 The counterpart of ``tests/test_import_hostonly.py``: in a fresh process,
 importing every module of ``jl_tpu_torch`` and every
-``scripts/torch_*.py``, ``bench_torch.py`` and ``chip_smoke.py`` leaves
-``torch.cuda.is_initialized()`` false and imports neither JAX nor the JAX
-package nor matplotlib (the card's machine has none: figures are drawn
+``scripts/torch_*.py``, ``bench_torch.py``, ``parity_cases.py`` and
+``chip_smoke.py`` leaves ``torch.cuda.is_initialized()`` false and imports
+neither JAX nor the JAX package nor matplotlib (the card's machine has none: figures are drawn
 elsewhere). A kernel is built and launched only inside the call that needs
 it.
 """
@@ -25,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, "scripts")
 scripts = sorted(p.stem for p in Path("scripts").glob("torch_*.py"))
-for name in scripts + ["bench_torch", "chip_smoke"]:
+for name in scripts + ["bench_torch", "parity_cases", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "matplotlib")

@@ -207,7 +207,7 @@ def _imports(path):
 
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     PORT.parents[1] / "chip_smoke.py", PORT.parents[1] / "chip_profile.py",
-    PORT.parents[1] / "bench_torch.py"] + sorted((PORT.parents[1] / "scripts").glob("torch_*.py"))
+    PORT.parents[1] / "parity_cases.py", PORT.parents[1] / "bench_torch.py"] + sorted((PORT.parents[1] / "scripts").glob("torch_*.py"))
 
 
 def test_import_check_covers_the_sweeps_and_sharding():

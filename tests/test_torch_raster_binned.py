@@ -12,7 +12,7 @@ pixel:
   fp32 inside test lies inside the triangle's box;
 * the binned algorithm gives the same image bit for bit, also with forced
   small face chunks and image tiles;
-* the box without its margin counts the work ``chip_smoke.live_pairs`` counts.
+* the box without its margin counts the work ``parity_cases.live_pairs`` counts.
 
 The kernel itself needs an H100; ``chip_smoke.py`` holds it against the same
 plain versions there (bitwise-equal images).
@@ -46,7 +46,7 @@ from bayesianposeestimation.jl_tpu_torch.parameters import Parameters
 from bayesianposeestimation.jl_tpu_torch.utils import mesh_io
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402  (imports nothing heavy until a phase runs)
+import parity_cases  # noqa: E402  (imports nothing heavy until a case runs)
 
 SHAPES = [(16, 16), (30, 30), (80, 60), (23, 37)]
 MESHES = ["cube", "monkey"]
@@ -206,7 +206,7 @@ def test_unwidened_boxes_count_live_pairs_on_a_hand_checked_cube():
         assert b[valid].tolist() == [expect, expect]
     area = (c1 - c0 + 1).clamp(min=0) * (r1 - r0 + 1).clamp(min=0)
     assert int(area[valid].sum()) == 200
-    assert chip_smoke.live_pairs(*args) == 200
+    assert parity_cases.live_pairs(*args) == 200
     # the margin adds nothing here: the nearest outside centre is 0.26 px away
     assert all(torch.equal(a, b) for a, b in zip(triangle_boxes(*args), (c0, c1, r0, r1)))
 
@@ -218,7 +218,7 @@ def test_unwidened_boxes_equal_live_pairs(mesh_name, w, h):
     valid, _ = triangle_forms(*args)
     c0, c1, r0, r1 = triangle_boxes(*args, margin=False)
     area = (c1 - c0 + 1).clamp(min=0) * (r1 - r0 + 1).clamp(min=0)
-    assert int(area[valid].sum()) == chip_smoke.live_pairs(*args) > 0
+    assert int(area[valid].sum()) == parity_cases.live_pairs(*args) > 0
 
 
 @pytest.mark.parametrize("mesh_name,w,h,face_budget,pixel_budget", [

@@ -12,7 +12,7 @@ fields every SMC sampler hands the update pass those checks, and the
 comparison ``chip_smoke.py``'s phase 19 makes, on the plain version with
 planted faults. The tests marked ``card`` need a CUDA card and skip without
 one: the kernel against the plain version on the same tensors
-(``chip_smoke.compare_smc_update``) and captured chains and filters bitwise
+(``parity_cases.compare_smc_update``) and captured chains and filters bitwise
 against their eager loops with the kernel in both. Run them on the card with
 ``python3 -m pytest tests/test_torch_smc_update.py -m card --noconftest -p
 no:cacheprovider`` (this file imports no JAX; the suite's conftest does).
@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import parity_cases
 from bayesianposeestimation.jl_tpu_torch import capture, convert, telemetry
 from bayesianposeestimation.jl_tpu_torch.models import experiment_samplers as TES
 from bayesianposeestimation.jl_tpu_torch.models import particle_filter as TPF
@@ -38,7 +38,7 @@ from bayesianposeestimation.jl_tpu_torch.samples import Sample
 from bayesianposeestimation.jl_tpu_torch.utils import mesh_io
 from portbench.trace import RASTER_KERNELS
 
-CASES = chip_smoke.SMC_UPDATE_CASES
+CASES = parity_cases.SMC_UPDATE_CASES
 SHAPES = [(1, "bop"), (31, "tracker"), (100, "bop"), (600, "tracker")]
 
 
@@ -102,7 +102,7 @@ def _equal(a, b):
 
 
 def _update(inp, fn=smc.update_population_plain):
-    old, sample = chip_smoke.smc_update_state(inp)
+    old, sample = parity_cases.smc_update_state(inp)
     temp = torch.ones(())
     return fn(old, inp["incr"], sample, temp, inp["u"], inp["threshold"])
 
@@ -117,8 +117,8 @@ def test_plain_update_equals_the_step_sequence(n, field_set, case):
     are bitwise the sequence ``SequentialMonteCarlo.step`` ran before the
     update had a name: new weights, evidence, ``normalize_log_weights``,
     ``log_relative_ess``, ``maybe_resample``."""
-    inp = chip_smoke.smc_update_inputs("cpu", n, field_set, case)
-    old, sample = chip_smoke.smc_update_state(inp)
+    inp = parity_cases.smc_update_inputs("cpu", n, field_set, case)
+    old, sample = parity_cases.smc_update_state(inp)
     temp = torch.ones(())
     new_weights = old.log_weights + inp["incr"]
     new_evidence = old.log_evidence + torch.logsumexp(new_weights, dim=-1)
@@ -133,20 +133,20 @@ def test_plain_update_equals_the_step_sequence(n, field_set, case):
 @pytest.mark.parametrize("fault", ["none", "weights", "evidence", "ess", "decision", "row",
                                    "index"])
 def test_phase19_comparison_sees_planted_faults(fault):
-    """``chip_smoke.compare_smc_update`` on the CPU with the plain version in
+    """``parity_cases.compare_smc_update`` on the CPU with the plain version in
     the kernel's place: it passes the plain version, and fails a weight,
     the evidence or the ESS moved by ten tolerances, a flipped resampling
     decision, a field row taken from another particle, an index moved away
     from the cdf's steps."""
-    inp = chip_smoke.smc_update_inputs("cpu", 600, "tracker", "random")
-    plain = chip_smoke.smc_update_plain(inp)
+    inp = parity_cases.smc_update_inputs("cpu", 600, "tracker", "random")
+    plain = parity_cases.smc_update_plain(inp)
     state, idx = plain[0], plain[1]
     assert bool(state.log_relative_ess < inp["threshold"])  # this input resamples
     lw, ev, ess = state.log_weights.clone(), state.log_evidence.clone(), state.log_relative_ess
     fields = [f.clone() for f in (*state.sample.variables.values(), state.sample.log_prob,
                                   state.sample.log_like)]
     idx = idx.clone()
-    move = 10 * chip_smoke.SMC_UPDATE_TOL * chip_smoke.smc_update_scale(inp)
+    move = 10 * parity_cases.SMC_UPDATE_TOL * parity_cases.smc_update_scale(inp)
     if fault == "weights":
         lw[3] += move
     elif fault == "evidence":
@@ -159,7 +159,7 @@ def test_phase19_comparison_sees_planted_faults(fault):
         fields[0][5] = inp["fields"][0][(idx[5] + 1) % 600]
     elif fault == "index":
         idx[7] = (idx[7] + 300) % 600
-    res = chip_smoke.compare_smc_update(inp, (lw, ev, ess, fields, idx), plain)
+    res = parity_cases.compare_smc_update(inp, (lw, ev, ess, fields, idx), plain)
     assert res["ok"] == (fault == "none"), res
 
 
@@ -328,15 +328,15 @@ def test_every_sampler_hands_the_update_what_the_kernel_takes(name, monkeypatch)
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("field_set", list(chip_smoke.SMC_UPDATE_FIELDS))
-@pytest.mark.parametrize("n", chip_smoke.SMC_UPDATE_SIZES)
+@pytest.mark.parametrize("field_set", list(parity_cases.SMC_UPDATE_FIELDS))
+@pytest.mark.parametrize("n", parity_cases.SMC_UPDATE_SIZES)
 def test_kernel_matches_the_plain_version_on_the_card(card, n, field_set):
-    """Phase 19's comparison (``chip_smoke.smc_update_cases``): the kernel
+    """Phase 19's comparison (``parity_cases.smc_update_cases``): the kernel
     against the plain version on the same card tensors in every case of
-    ``chip_smoke.SMC_UPDATE_CASES``: weights, evidence and ESS within 1e-6
+    ``parity_cases.SMC_UPDATE_CASES``: weights, evidence and ESS within 1e-6
     of the inputs' largest magnitude, indices equal but where a position
     lies within 2^-20 of the plain cdf, fields bitwise."""
-    for case, res in chip_smoke.smc_update_cases(card, n, field_set):
+    for case, res in parity_cases.smc_update_cases(card, n, field_set):
         assert res["ok"], (case, res)
 
 

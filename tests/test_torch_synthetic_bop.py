@@ -9,7 +9,7 @@ plain version of the depth-only kernel).
   within 1e-5, scene_camera.json equal, every mask within IoU 0.98 and every
   visib_fract within 0.01 of the checked-in one (both measured equal), every
   depth PNG within 1 unit (0.1 mm) wherever both scenes' masks agree
-  (``chip_smoke.compare_generated_scene``, which phase 15d applies on the
+  (``parity_cases.compare_generated_scene``, which phase 15d applies on the
   card). Without injection the rotations are unit quaternions and the rest
   is the same.
 * The steri script's generator arguments (--dataset synth_steri --seed 7)
@@ -37,7 +37,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import torch_make_synthetic_bop as gen  # noqa: E402
-from chip_smoke import (  # noqa: E402
+from parity_cases import (  # noqa: E402
     JAX_QUATERNIONS,
     compare_generated_scene,
     gt_quaternions,

@@ -262,7 +262,7 @@ def test_benchmark_cell_with_telemetry_on(name):
     """``chip_profile.py telemetry`` at a test size on the CPU: the cell
     stays correct, its steps and requests are counted, the named parts of a
     step are the loop's own, and telemetry is off again after it."""
-    import chip_profile
+    import parity_cases
     from portbench import cells
 
     cell, config = cells.load(name)
@@ -276,7 +276,7 @@ def test_benchmark_cell_with_telemetry_on(name):
         cell["check"]["frames"] = 3
         per_request = 5
     cell["check"]["requests"] = 2
-    out = chip_profile.telemetry_cell(name, 20250106, 0.5, "cpu", cell, config)
+    out = parity_cases.telemetry_cell(name, 20250106, 0.5, "cpu", cell, config)
     t = out["telemetry"]
     assert out["correct"] and out["failed"] == 0 and t["requests"] == out["attempted"] >= 1
     assert t["steps"] == per_request * t["requests"] and t["dropped"] == 0

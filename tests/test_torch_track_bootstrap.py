@@ -34,7 +34,7 @@ from pathlib import Path
 import pytest
 import torch
 
-import chip_profile
+import parity_cases
 from bayesianposeestimation.jl_tpu_torch import telemetry
 from bayesianposeestimation.jl_tpu_torch.samplers import smc
 from portbench import calibrate
@@ -167,7 +167,7 @@ def test_filter_counts_by_kind(name, per_frame):
     """``chip_profile.py telemetry`` on the cell at the test size: the
     window's runs, frames stepped and poses scored, by filter kind."""
     cell, config = tiny_cell(name)
-    out = chip_profile.telemetry_cell(name, 20250106, 0.5, "cpu", cell, config)
+    out = parity_cases.telemetry_cell(name, 20250106, 0.5, "cpu", cell, config)
     pf = out["telemetry"]["pf"]
     kind = config["filter"]
     runs = out["attempted"]
