@@ -1,5 +1,8 @@
-// The SMC population update after the likelihood, in one launch, written by
-// hand for Hopper (sm_90a).
+// Two kernels of the sampler step, written by hand for Hopper (sm_90a): the
+// SMC population update after the likelihood, and before it the MH move's
+// tail after the render (mh_move_kernel, below the update), one launch each.
+//
+// The population update.
 //
 // Replaces no TPU kernel: the JAX step (jl_tpu/samplers/smc.py,
 // SequentialMonteCarlo.step from the new weights through maybe_resample) is
@@ -241,5 +244,120 @@ extern "C" int bpe_smc_update(const float* old_log_weights, const float* incr,
   smc_update_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       old_log_weights, incr, old_evidence, u, n, k, log_n, inv_n, threshold, f,
       out_log_weights, out_evidence, out_log_relative_ess, out_indices);
+  return (int)cudaGetLastError();
+}
+
+
+// The MH move after the render, in one launch.
+//
+// Replaces no TPU kernel: the JAX step's tail (the likelihood's regularizer,
+// the point prior, tempering, the previous sample re-tempered, the MH test
+// and its select, the SMC increment) is plain jnp that XLA fuses. The port
+// ran it as 39-49 small kernels a move on an H100 (samplers/mh.py's plain
+// version, mh_transition_plain), each over 1-1,000 floats; this kernel takes
+// their place. What bounds it is the launch, not bytes (~100 B a particle)
+// or operations (~40 a particle).
+//
+// Per particle i, in fp32, in the plain version's operation order (built
+// with -fmad=false, so nothing is contracted where the plain version rounds
+// twice):
+//   1. the likelihood, logdensity_npixel: where sum_o is 0, -inf; else
+//      (1 / sum_o) * c_reg * ell_raw (torch divides a number by a tensor as
+//      the tensor's reciprocal times the number);
+//   2. the point prior: Normal(prior_t, sigma_t) at t, each coordinate
+//      ((z * -0.5) * z - log sigma) - log(2 pi) / 2 with z = (t - mu) / sigma,
+//      summed as (x + z) + y (the order of torch's sum over the last axis of
+//      three on the card), plus QuaternionUniform's -log |S^3|;
+//   3. log_prob = prior + (phi' > 0 ? phi' * like : 0) (tempered_logdensity);
+//   4. the previous log_prob re-tempered: + (phi' - phi != 0 ? (phi' - phi) *
+//      its like : 0) (retemper);
+//   5. alpha = ((log_prob - previous) + q_backward) - q_forward, the two
+//      transition terms constant (0 for a symmetric proposal);
+//   6. accept where log u <= alpha: t, r, log_prob, log_like from the
+//      proposal, else from the previous sample (its re-tempered log_prob);
+//   7. where asked, the SMC increment (phi' - phi) * the previous like.
+// The temperatures, the prior's mean and sigma are read from device memory
+// (a tuned runner's rows), so one capture serves every call.
+namespace {
+
+constexpr int kMoveThreads = 128;
+
+__global__ void __launch_bounds__(kMoveThreads)
+mh_move_kernel(int n, const float* __restrict__ ell_raw, const float* __restrict__ sum_o,
+               const float* __restrict__ prop_t, const float* __restrict__ prop_r,
+               const float* __restrict__ prev_t, const float* __restrict__ prev_r,
+               const float* __restrict__ prev_log_prob, const float* __restrict__ prev_log_like,
+               const float* __restrict__ u, const float* __restrict__ old_temp,
+               const float* __restrict__ new_temp, const float* __restrict__ prior_t,
+               int prior_t_stride, const float* __restrict__ sigma_t, int sigma_t_stride,
+               float c_reg, float half_log_2pi, float log_r_density, float q_backward,
+               float q_forward, float* __restrict__ out_t, float* __restrict__ out_r,
+               float* __restrict__ out_log_prob, float* __restrict__ out_log_like,
+               float* __restrict__ out_incr) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // 1. the likelihood
+  const float so = sum_o[i];
+  const float safe = so == 0.0f ? 1.0f : so;
+  const float like = so == 0.0f ? -INFINITY : (1.0f / safe) * c_reg * ell_raw[i];
+  // 2. the point prior
+  float term[3];
+  for (int k = 0; k < 3; ++k) {
+    const float sigma = sigma_t[k * sigma_t_stride];
+    const float z = (prop_t[3 * i + k] - prior_t[k * prior_t_stride]) / sigma;
+    term[k] = ((z * -0.5f) * z - logf(sigma)) - half_log_2pi;
+  }
+  const float prior = ((term[0] + term[2]) + term[1]) + log_r_density;
+  // 3. tempered, 4. the previous sample re-tempered
+  const float phi = *old_temp, phi_new = *new_temp;
+  const float log_prob = prior + (phi_new > 0.0f ? phi_new * like : 0.0f);
+  const float delta = phi_new - phi;
+  const float prev_like = prev_log_like[i];
+  const float prev = prev_log_prob[i] + (delta != 0.0f ? delta * prev_like : 0.0f);
+  // 5. the MH test, 6. the select
+  const float alpha = ((log_prob - prev) + q_backward) - q_forward;
+  const bool accept = logf(u[i]) <= alpha;
+  const float* t = accept ? prop_t : prev_t;
+  const float* r = accept ? prop_r : prev_r;
+  for (int k = 0; k < 3; ++k) out_t[3 * i + k] = t[3 * i + k];
+  for (int k = 0; k < 4; ++k) out_r[4 * i + k] = r[4 * i + k];
+  out_log_prob[i] = accept ? log_prob : prev;
+  out_log_like[i] = accept ? like : prev_like;
+  // 7. the SMC increment
+  if (out_incr != nullptr) out_incr[i] = delta * prev_like;
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes). Launches ceil(n / 128) blocks on
+// `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a size it does not take. Inputs, device
+// pointers: the render's `ell_raw` and `sum_o` [n], the proposed `prop_t`
+// [n, 3] and `prop_r` [n, 4], the previous sample's `prev_t`, `prev_r`,
+// `prev_log_prob` and `prev_log_like`, the uniforms `u` [n], the temperatures
+// `old_temp` and `new_temp` (one float each), the prior's `prior_t` and
+// `sigma_t` (3 floats at a stride of 1, or one at a stride of 0); host
+// numbers: `c_reg`, the fp32 roundings of log(2 pi) / 2 and of -log |S^3|,
+// and the proposal's two constant transition terms. Outputs [n, 3], [n, 4],
+// [n], [n], and, where not null, the increment [n].
+extern "C" int bpe_mh_move(int n, const float* ell_raw, const float* sum_o, const float* prop_t,
+                           const float* prop_r, const float* prev_t, const float* prev_r,
+                           const float* prev_log_prob, const float* prev_log_like,
+                           const float* u, const float* old_temp, const float* new_temp,
+                           const float* prior_t, int prior_t_stride, const float* sigma_t,
+                           int sigma_t_stride, float c_reg, float half_log_2pi,
+                           float log_r_density, float q_backward, float q_forward,
+                           float* out_t, float* out_r, float* out_log_prob,
+                           float* out_log_like, float* out_incr, void* stream) {
+  if (n < 1 || prior_t_stride < 0 || prior_t_stride > 1 || sigma_t_stride < 0 ||
+      sigma_t_stride > 1)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kMoveThreads - 1) / kMoveThreads;
+  mh_move_kernel<<<blocks, kMoveThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, ell_raw, sum_o, prop_t, prop_r, prev_t, prev_r, prev_log_prob, prev_log_like, u,
+      old_temp, new_temp, prior_t, prior_t_stride, sigma_t, sigma_t_stride, c_reg,
+      half_log_2pi, log_r_density, q_backward, q_forward, out_t, out_r, out_log_prob,
+      out_log_like, out_incr);
   return (int)cudaGetLastError();
 }

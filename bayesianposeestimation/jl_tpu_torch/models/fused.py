@@ -24,6 +24,8 @@ every image, camera, candidate and step count.
 
 from __future__ import annotations
 
+import numbers
+
 import numpy as np
 import torch
 
@@ -154,12 +156,23 @@ class FusedPosterior:
         self.depth = exp.depth_image.to(torch.float32).contiguous()
         self.prior_o = torch.as_tensor(exp.prior_o, dtype=torch.float32, device=self.device) \
             .expand(params.height, params.width).contiguous()
+        # the point prior's mean and sigma where the MH move's kernel
+        # (ops/mh_move.py) computes this posterior's densities as the plain
+        # code does: the npixel likelihood with a host c_reg, fp32 rows of 3
+        # (or one) on the device; else None, and every move runs plain
+        self.move_prior = None
         if prior_graph is None:
             sigma_t = sigma_row(params.sigma_t, self.device)
             prior_graph = {
                 "t": BroadcastedNode("t", Normal, exp.prior_t, sigma_t),
                 "r": BroadcastedNode("r", QuaternionUniform),
             }
+            rows = (exp.prior_t, sigma_t)
+            if (not self.simple_reg and isinstance(params.c_reg, numbers.Real)
+                    and all(isinstance(x, torch.Tensor) and x.dtype == torch.float32
+                            and x.device.type == self.device.type
+                            and x.shape in ((3,), ()) and x.is_contiguous() for x in rows)):
+                self.move_prior = rows
         self.graph = prior_graph
         self.bijectors = bijectors_of(self.graph)
         self.quaternion_names = quaternion_names_of(self.graph)
@@ -177,10 +190,11 @@ class FusedPosterior:
     def sample_prior(self, generator, n_particles: int) -> Sample:
         return Sample(sample_graph(self.graph, generator, (n_particles,)))
 
-    def prior_and_likelihood(self, sample: Sample, batch_ndim: int = 1):
-        """(log prior, log likelihood), each of the poses' batch shape: the
-        leading dims of t [..., 3] (``batch_ndim`` of them, e.g. [tries,
-        chains]), flattened into one kernel launch and shaped back."""
+    def render(self, sample: Sample, batch_ndim: int = 1):
+        """(ℓ, Σo): the kernel's per-pose pixel sums before the regularizer,
+        each of the poses' batch shape: the leading dims of t [..., 3]
+        (``batch_ndim`` of them, e.g. [tries, chains]), flattened into one
+        kernel launch and shaped back. Counts one evaluation."""
         t = sample.variables["t"]
         r = sample.variables["r"]
         batch = t.shape[:-1]
@@ -192,7 +206,12 @@ class FusedPosterior:
             r.reshape(-1, 4).contiguous(), self.depth, self.prior_o, self.params,
             self.variant, self.backface_cull, hyper=self.hyper, device=self.device,
             cam_row=self.cam_row)
-        ell_raw, sum_o = ell_raw.reshape(batch), sum_o.reshape(batch)
+        return ell_raw.reshape(batch), sum_o.reshape(batch)
+
+    def prior_and_likelihood(self, sample: Sample, batch_ndim: int = 1):
+        """(log prior, log likelihood), each of the poses' batch shape
+        (``render``)."""
+        ell_raw, sum_o = self.render(sample, batch_ndim)
         if self.simple_reg:
             ell_like = P.simple_image_regularization(
                 self.params.c_reg, ell_raw, self.params.width * self.params.height)

@@ -12,6 +12,10 @@ device with no host synchronisation:
   hand-written kernel (``ops/smc_update.py``) in place of 77-81 small ones;
   the plain version (``update_population_plain``) runs for CPU tensors and
   for a sharded step;
+* an MH kernel's move after its draws (the densities, the MH test and
+  select, the increment) goes through ``mh.mh_transition``, on the card one
+  hand-written kernel after the render where the move allows it; the other
+  kernels' moves run as they always did;
 * the adaptive proposal's weighted covariance and Cholesky factor are device
   tensors; a failed factorization (``info != 0`` or non-finite) selects the
   configured σ without a branch on the host.
@@ -47,7 +51,7 @@ from ..ops.smc_update import smc_update
 from ..posterior import retemper
 from ..proposals import Proposal, apply_draws, propose, transition_probability
 from ..samples import Sample, sample_plus
-from .mh import mh_kernel
+from .mh import mh_kernel, mh_transition
 
 __all__ = [
     "SmcState",
@@ -321,6 +325,13 @@ class ForwardProposalKernel:
         return new_sample.log_prob + bwd - old_state.sample.log_prob - fwd
 
 
+def _mh_kernel_of(kernel):
+    """The ``MhKernel`` that makes ``kernel``'s moves (itself, or the one an
+    ``AdaptiveKernel`` proposes for), or None."""
+    inner = kernel.kernel if isinstance(kernel, AdaptiveKernel) else kernel
+    return inner if isinstance(inner, MhKernel) else None
+
+
 def adaptive_deltas(state: SmcState, names, sigmas, quaternion_names, normals: dict,
                     shard=None):
     """Zero-centred perturbations whose covariance is the weighted particle
@@ -414,13 +425,22 @@ class SequentialMonteCarlo:
         extra = {} if shard is None else {"shard": shard}
         new_temp = self.temp_schedule.increment(old_state.temperature)
         proposed = self.kernel.propose(gen, old_state, **extra)
-        proposed = model.tempered_logdensity_sample(proposed, new_temp)
-        # the forward kernel targets π_ϕnew: re-temper the old sample's
-        # carried density (no re-render)
-        old_retempered = retemper(old_state.sample, old_state.temperature, new_temp)
-        new_sample = self.kernel.forward(gen, proposed, old_retempered, **extra)
-
-        incr = self.kernel.incremental_weights(new_sample, new_temp, old_state)
+        mh = _mh_kernel_of(self.kernel)
+        if mh is not None:
+            # the MH move and its increment (ϕ₂-ϕ₁)·ℓ_like(old), which
+            # MhKernel.forward and incremental_weights compute
+            old = old_state.sample
+            u = _draw(torch.rand, old.log_prob.shape, gen, old.log_prob.dtype, shard)
+            new_sample, incr = mh_transition(model, mh.proposal, proposed, old,
+                                             old_state.temperature, new_temp, u,
+                                             increment=True, shard=shard)
+        else:
+            proposed = model.tempered_logdensity_sample(proposed, new_temp)
+            # the forward kernel targets π_ϕnew: re-temper the old sample's
+            # carried density (no re-render)
+            old_retempered = retemper(old_state.sample, old_state.temperature, new_temp)
+            new_sample = self.kernel.forward(gen, proposed, old_retempered, **extra)
+            incr = self.kernel.incremental_weights(new_sample, new_temp, old_state)
         dtype = torch.result_type(old_state.log_weights, incr)
         u = torch.rand((), generator=gen, dtype=dtype, device=gen.device)
         resampled = update_population(old_state, incr, new_sample, new_temp, u,

@@ -221,7 +221,20 @@ Phases (each prints its results; any failure exits non-zero):
      missed the kernel), the plain block's kernels and the kernel's device
      time, the kernel recorded once a call with a device time. The kernels
      line gives each shape the smc_update launches of the main path at its
-     particle count (phases 3, 6 and 11).
+     particle count (phases 3, 6 and 11);
+  20. the MH move after the render (``ops/mh_move.py``, csrc/smc_update.cu)
+     through ``mh_transition`` against its plain version
+     (``mh_transition_plain``) on the same tensors: 1, 100 and 1,000
+     particles, the three proposals of smc_mh and mh_sampler, ϕ 0 → 1/480,
+     479/480 → 1, 1 → 1, Σo = 0 pixels, -inf previous samples, u = 0
+     (``compare_mh_move``: fields, log-densities and increment bitwise, the
+     same accept decisions, the kernel's path taken); then at the three MH
+     cells' shapes and each proposal the kernel and the plain block, each
+     replayed from a CUDA graph, the kernel's registers and bound, and, from
+     torch.profiler in a process of its own, the plain block's kernels and
+     the kernel's device time. Phases 3, 7b and 11 hold every step of
+     smc_mh and mh_sampler to one mh_move launch (none for multiple-try),
+     and the kernels line gives each shape those launches.
 Every phase prints the seconds since the start when it ends.
 Phase 2 also holds ``render_depth`` and ``render_score(return_mu=True)``
 against their plain versions and each other, and times them at the tracking
@@ -272,6 +285,9 @@ from parity_cases import (
     JAX_QUATERNIONS,
     REEVALUATED_BOP_RUNS,
     REEVALUATED_HYPEROPT,
+    MH_MOVE_PROPOSALS,
+    MH_MOVE_SHAPES,
+    MH_MOVE_SIZES,
     SMC_UPDATE_FIELDS,
     SMC_UPDATE_SHAPES,
     SMC_UPDATE_SIZES,
@@ -284,10 +300,15 @@ from parity_cases import (
     bop_val_script,
     compare_errors,
     compare_generated_scene,
+    compare_mh_move,
     compare_smc_update,
     gt_quaternions,
     hyperopt_argv,
     live_pairs,
+    mh_move_cases,
+    mh_move_inputs,
+    mh_move_kernel,
+    mh_move_plain,
     read_trials,
     smc_update_cases,
     smc_update_inputs,
@@ -1777,8 +1798,8 @@ def bop_eval_parity(device, failures, smi, split=SYNTHCAD):
 class RunnerLog:
     """Records every call of the chain runners that
     ``models.fused.make_conditioned_chain`` builds while in use: the mesh,
-    the call's inputs and outputs, and the kernel launches and likelihood
-    evaluations it made."""
+    the call's inputs and outputs, and the kernel launches, likelihood
+    evaluations and MH move kernel launches it made."""
 
     def __init__(self, evals):
         self.evals = evals
@@ -1787,6 +1808,7 @@ class RunnerLog:
     def __enter__(self):
         from bayesianposeestimation.jl_tpu_torch.models import fused
         from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+        from bayesianposeestimation.jl_tpu_torch.ops.mh_move import mh_move
 
         self._inner = inner = fused.make_conditioned_chain
 
@@ -1794,14 +1816,14 @@ class RunnerLog:
             run = inner(params, verts, faces, variant, factory, n_steps, *a, **kw)
 
             def logged(seed, cam, obs, prior_o, prior_t, *rest, **kw):
-                l0, e0 = render_score.launches, self.evals.n
+                l0, e0, m0 = render_score.launches, self.evals.n, mh_move.launches
                 out = run(seed, cam, obs, prior_o, prior_t, *rest, **kw)
                 self.calls.append(dict(seed=seed, params=params, verts=verts, faces=faces,
                                        n_steps=kw.get("n_steps") or n_steps,
                                        variant=variant, args=(cam, obs, prior_o, prior_t),
                                        rest=rest, out=out,
                                        launches=render_score.launches - l0,
-                                       evals=self.evals.n - e0))
+                                       evals=self.evals.n - e0, moves=mh_move.launches - m0))
                 return out
 
             logged.runners = run.runners  # its captured chains, which make_tuned_chain reads
@@ -1820,19 +1842,22 @@ def bop_inference(device, failures, smi, scene=1, split=SYNTHCAD, samplers=BOP_S
                   phase="7b"):
     """Phase 7b (and 10): scripts/torch_smc_bop_val.py's scene_inference on
     scene 1 of a split for each sampler at the 0.5 s budget, then
-    evaluate_scene on the port's own estimates. Returns the render_score
-    launches per sampler."""
+    evaluate_scene on the port's own estimates. On the card every step of
+    smc_mh and mh_sampler after a run's first launches the MH move kernel
+    once, and multiple-try never. Returns (the render_score launches per
+    sampler, the mh_move launches per sampler)."""
     import numpy as np
     import torch
 
     from bayesianposeestimation.jl_tpu_torch.models.fused import fused_posterior
     from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+    from bayesianposeestimation.jl_tpu_torch.ops.mh_move import mh_move
     from bayesianposeestimation.jl_tpu_torch.parameters import Experiment, Parameters
     from bayesianposeestimation.jl_tpu_torch.samples import Sample
     from bayesianposeestimation.jl_tpu_torch.utils.artifacts import load_artifact, savename
 
     bopval = bop_val_script()
-    launches = {}
+    launches, moves = {}, {}
     cache = {}
     for sampler in samplers:
         config = dict(sampler=sampler, dataset=split["dataset"], testset=split["testset"],
@@ -1841,12 +1866,20 @@ def bop_inference(device, failures, smi, scene=1, split=SYNTHCAD, samplers=BOP_S
         params = Parameters(n_particles=tries, time_budget=TIME_BUDGET, device=device,
                             **bopval.tuned_parameters(split["dataset"], sampler))
         per_step = 2 if sampler.startswith("mtm") else 1
-        render_score.launches = 0
+        render_score.launches = mh_move.launches = 0
         t0 = time.perf_counter()
         with EvaluationCount() as evals, RunnerLog(evals) as log:
             result = bopval.scene_inference(config, str(BOP_DIR), params, device)
         dt = time.perf_counter() - t0
-        launches[sampler] = render_score.launches
+        launches[sampler], moves[sampler] = render_score.launches, mh_move.launches
+        # one move a step after the first in every logged run, none for
+        # multiple-try (the phase's total also counts runs the log does not see)
+        per_move = 0 if sampler.startswith("mtm") else 1
+        off = [(c["moves"], c["n_steps"]) for c in log.calls
+               if c["moves"] != per_move * (c["n_steps"] - 1)]
+        if off or (moves[sampler] > 0) != bool(per_move):
+            failures.append(f"phase {phase} {sampler}: mh_move launches vs MH steps {off[:3]}, "
+                            f"total {moves[sampler]}")
         rows = result["result_rows"]
         # the script seeds row i's run with seed + i, its warm-up and
         # feedback runs with seed + 10**6 and up
@@ -1888,7 +1921,8 @@ def bop_inference(device, failures, smi, scene=1, split=SYNTHCAD, samplers=BOP_S
         mine, _ = bopval.recall_rows({"port": [errors], "jax": [jax_err]})
         rec = {r["sampler"]: r for r in mine}
         print(f"phase {phase} {sampler} scene {scene} ({len(rows)} rows, {tries} "
-              f"{'tries' if tries == 10 else 'particles'}) on {smi}: {dt:.2f} s in all; steps "
+              f"{'tries' if tries == 10 else 'particles'}) on {smi}: {dt:.2f} s in all; "
+              f"mh_move launches {moves[sampler]}; steps "
               f"per {TIME_BUDGET} s budget by object {json.dumps(steps)} (step ms "
               f"{json.dumps(step_ms)}); wall per pose mean {np.mean(walls):.4f} s max "
               f"{np.max(walls):.4f} s; launches {render_score.launches} = evaluations {evals.n}; "
@@ -1896,7 +1930,7 @@ def bop_inference(device, failures, smi, scene=1, split=SYNTHCAD, samplers=BOP_S
               f"{rec['port']['vsd_recall']:.3f} (JAX artifact {rec['jax']['vsd_recall']:.3f}), "
               f"ADD-S {rec['port']['adds_recall']:.3f} (JAX {rec['jax']['adds_recall']:.3f}), "
               f"n={rec['port']['n_gt']}")
-    return launches
+    return launches, moves
 
 
 def bop_kernel_rows(device, smi, dataset="synthcad", obj_id=1, poses=(100, 1, 10, 9),
@@ -2061,7 +2095,7 @@ def hardvis_phase(device, failures, smi):
     launches of the evaluation, its timing row, render_score launches of the
     inference, the render_score row)."""
     launches, timing, _, _ = bop_eval_parity(device, failures, smi, HARDVIS)
-    phase_launches = bop_inference(device, failures, smi, 1, HARDVIS, ("smc_mh",), "10")
+    phase_launches, _ = bop_inference(device, failures, smi, 1, HARDVIS, ("smc_mh",), "10")
     row = bop_kernel_rows(device, smi, "synth", HARDVIS["obj_id"], (100,), "10", "hardvis")[100]
     if not row[-1]["ok"] or row[1] is None:
         failures.append("phase 10 render_score at the hardvis shape: vs plain, or no device "
@@ -2076,32 +2110,38 @@ def inference_time_phase(device, failures, smi, resolutions=(25, 50, 100),
     poses x 100x100, the largest point, against its plain version with phase
     2's tolerances and timed. At every point on the card each chain step
     launches smc_update once: more than none, and fewer than render_score's
-    launches (a run's init evaluates without an update). Returns (launches at
+    launches (a run's init evaluates without an update); and the MH move
+    kernel once (every step of smc_mh is an MH move). Returns (launches at
     that point, its timing row, its comparison, smc_update's launches
-    there)."""
+    there, mh_move's launches there)."""
     import torch
 
     from bayesianposeestimation.jl_tpu_torch import quaternions as quat
     from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_score
+    from bayesianposeestimation.jl_tpu_torch.ops.mh_move import mh_move
     from bayesianposeestimation.jl_tpu_torch.ops.smc_update import smc_update
 
     sys.path.insert(0, str(REPO / "scripts"))
     import torch_inference_time as it
 
     t0 = time.perf_counter()
-    launches, updates = {}, {}
+    launches, updates, moves = {}, {}, {}
     for res in resolutions:
         for n in particles:
-            render_score.launches = smc_update.launches = 0
+            render_score.launches = smc_update.launches = mh_move.launches = 0
             [row] = it.grid_rows("monkey", [res], [n], device)
             launches[(res, n)], updates[(res, n)] = render_score.launches, smc_update.launches
+            moves[(res, n)] = mh_move.launches
             print(f"phase 11 inference time {res}x{res}, {n} particles: "
                   f"{row['step_time_ms']:.4f} ms per step, {row['hyp_per_s']:.1f} hyp/s, "
-                  f"{launches[(res, n)]} launches, {updates[(res, n)]} smc_update launches "
-                  f"on {smi}")
+                  f"{launches[(res, n)]} launches, {updates[(res, n)]} smc_update launches, "
+                  f"{moves[(res, n)]} mh_move launches on {smi}")
             if not 0 < updates[(res, n)] < launches[(res, n)]:
                 failures.append(f"phase 11 smc_update launches {updates[(res, n)]} at {res}x"
                                 f"{res}, {n} particles, vs {launches[(res, n)]} evaluations")
+            if moves[(res, n)] != updates[(res, n)]:
+                failures.append(f"phase 11 mh_move launches {moves[(res, n)]} at {res}x{res}, "
+                                f"{n} particles, vs {updates[(res, n)]} SMC steps")
     params, exp = it.scene("monkey", max(resolutions), device)
     n = max(particles)
     gen = torch.Generator(device=device).manual_seed(11)
@@ -2118,7 +2158,8 @@ def inference_time_phase(device, failures, smi, resolutions=(25, 50, 100),
     if not res_cmp["ok"] or row[1] is None:
         failures.append("phase 11 render_score at 1000 poses x 100x100: vs plain, or no "
                         "device time")
-    return launches[(max(resolutions), n)], row, res_cmp, updates[(max(resolutions), n)]
+    top = (max(resolutions), n)
+    return launches[top], row, res_cmp, updates[top], moves[top]
 
 
 def stream_messages(stream, stamp0_ns=1_700_000_000 * 10**9):
@@ -4168,6 +4209,145 @@ def smc_update_phase(device, failures, smi):
     return rows
 
 
+# -- phase 20: the MH move after the render against its plain version ----------
+# (its cases and their comparison are parity_cases.py's, which the card tests apply too)
+
+
+MH_MOVE_PROFILE_FLAG = "--mh-move-profile"
+
+
+def mh_move_blocks(cell, proposal, device):
+    """The move at ``cell``'s shape (``MH_MOVE_SHAPES``) with ``proposal``:
+    (its inputs, the move through ``mh_transition``, the plain version), the
+    two as calls of no argument; the SMC cells' moves with the increment,
+    ``synthcad_mh.bop``'s without. The inputs' posterior hands back given
+    render sums, so neither call renders."""
+    from bayesianposeestimation.jl_tpu_torch.samplers import mh
+
+    inp = mh_move_inputs(device, MH_MOVE_SHAPES[cell], proposal, "random", seed=7)
+    args = (inp["posterior"], inp["proposal"], inp["proposed"], inp["previous"],
+            inp["old_temp"], inp["new_temp"], inp["u"])
+    incr = cell.startswith("synthcad_smc_mh")
+    return (inp, lambda: mh.mh_transition(*args, increment=incr),
+            lambda: mh.mh_transition_plain(*args, increment=incr))
+
+
+def mh_move_profile(device="cuda"):
+    """The device side of ``mh_move_rows`` in a process of its own (``python3
+    chip_smoke.py --mh-move-profile``): at each MH cell's shape and each
+    proposal the kernel's move and the plain block, ten calls under
+    torch.profiler, the fullest of three sessions kept. Prints one JSON line:
+    by cell and proposal, the kernel's recorded launches a call and device ms
+    a launch, the plain block's CUDA kernels a call and device ms a call."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for cell in MH_MOVE_SHAPES:
+        for proposal in MH_MOVE_PROPOSALS:
+            _, kernel, plain = mh_move_blocks(cell, proposal, device)
+            row = out.setdefault(f"{cell} {proposal}", {})
+            for label, fn in (("kernel", kernel), ("plain", plain)):
+                fn()
+                torch.cuda.synchronize()
+                ev = []
+                for _ in range(3):
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        for _ in range(10):
+                            fn()
+                        torch.cuda.synchronize()
+                    ev = max(ev, [e for e in prof.events()
+                                  if e.device_type == torch.autograd.DeviceType.CUDA], key=len)
+                if label == "kernel":
+                    ours = [e.time_range.elapsed_us() for e in ev if "mh_move_kernel" in e.name]
+                    row.update(kernel_launches_profiled=len(ours) / 10,
+                               kernel_kernels_per_call=len(ev) / 10,
+                               kernel_device_ms=sum(ours) / len(ours) / 1e3 if ours else None)
+                else:
+                    row.update(plain_kernels_per_call=len(ev) / 10,
+                               plain_device_ms=sum(e.time_range.elapsed_us()
+                                                   for e in ev) / 10e3)
+    print(json.dumps(out))
+    return 0
+
+
+def mh_move_rows(device, smi, n_graph=50):
+    """The kernel's move and the plain block at the three MH cells' shapes,
+    each proposal: checked (``compare_mh_move``), then replayed from a CUDA
+    graph of ``n_graph`` calls (ms a call, no host pacing), beside
+    ``mh_move_profile``'s device numbers (its own process; ``profiled_ok``:
+    the kernel recorded once a call, the only kernel of the call, with a
+    device time), the kernel's registers (where this process built the
+    library) and its bound (bytes read and written once / 3.35 TB/s). One
+    dict a shape and proposal."""
+    from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
+    from portbench.roofline import PEAK_BYTES_PER_S
+
+    log = cuda_raster.build_library()[1]
+    try:
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), MH_MOVE_PROFILE_FLAG],
+                              capture_output=True, text=True, timeout=300, cwd=REPO)
+        prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (subprocess.TimeoutExpired, IndexError, ValueError) as e:
+        prof = {"profile_error": type(e).__name__}
+    rows = []
+    for cell, n in MH_MOVE_SHAPES.items():
+        for proposal in MH_MOVE_PROPOSALS:
+            inp, kernel, plain = mh_move_blocks(cell, proposal, device)
+            res = compare_mh_move(inp, mh_move_kernel(inp), mh_move_plain(inp))
+            p = prof.get(f"{cell} {proposal}", {})
+            incr = cell.startswith("synthcad_smc_mh")
+            # read: the sums, the proposed and previous t and r, the previous
+            # densities, u; written: t, r, the densities (and the increment);
+            # the temperatures and the prior's rows
+            moved = 4 * n * ((2 + 7 + 7 + 2 + 1) + (7 + 2 + incr)) + 4 * (2 + 6)
+            rows.append({"cell": cell, "particles": n, "proposal": proposal, "card": smi,
+                         "check": res, "kernel_graph_ms": graph_ms(kernel, n=n_graph),
+                         "plain_graph_ms": graph_ms(plain, n=n_graph), **p,
+                         "profiled_ok": p.get("kernel_launches_profiled") == 1
+                         and p.get("kernel_kernels_per_call") == 1
+                         and bool(p.get("kernel_device_ms")),
+                         "bytes": moved, "bound_ms": moved / PEAK_BYTES_PER_S * 1e3,
+                         "bound_by": "bytes",
+                         "registers": kernel_registers(log, "mh_move_kernel")})
+    return rows
+
+
+def mh_move_phase(device, failures, smi):
+    """Phase 20: ``mh_move_cases`` at every size of ``MH_MOVE_SIZES`` with
+    each proposal, then ``mh_move_rows`` (each row checked and its kernel
+    profiled). Returns the rows."""
+    t0 = time.perf_counter()
+    worst, checked, accepted = {}, 0, 0
+    for n in MH_MOVE_SIZES:
+        for proposal in MH_MOVE_PROPOSALS:
+            for case, res in mh_move_cases(device, n, proposal):
+                checked += 1
+                accepted += res["accepted"]
+                for k, v in res.items():
+                    if k.endswith("_ulps") or k.startswith("decisions"):
+                        worst[k] = max(worst.get(k, 0), v)
+                if not res["ok"]:
+                    print(f"phase 20 {n} particles, {proposal}, {case}: {json.dumps(res)}")
+                    failures.append(f"phase 20 mh_move vs plain at {n} {proposal} {case}")
+    print(f"phase 20 mh_move vs plain: {checked} cases, {accepted} moves accepted, worst "
+          f"{json.dumps(worst)}")
+    rows = mh_move_rows(device, smi)
+    for row in rows:
+        print(f"phase 20 {json.dumps(row)}")
+        if not row["check"]["ok"]:
+            failures.append(f"phase 20 mh_move vs plain at {row['cell']}'s shape, "
+                            f"{row['proposal']}")
+        if not row["profiled_ok"]:
+            failures.append(f"phase 20 mh_move at {row['cell']}'s shape, {row['proposal']}: the "
+                            f"profiler saw {row.get('kernel_launches_profiled')} launches a "
+                            f"call, device ms {row.get('kernel_device_ms')}")
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "render_score.cu").is_file():
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -4189,6 +4369,7 @@ def main() -> int:
         render_score,
         render_score_reference,
     )
+    from bayesianposeestimation.jl_tpu_torch.ops.mh_move import mh_move
     from bayesianposeestimation.jl_tpu_torch.ops.smc_update import smc_update
 
     dev = "cuda"
@@ -4386,24 +4567,27 @@ def main() -> int:
 
     # -- phase 3: the benchmark chain ---------------------------------------
     n_steps, n_particles = 500, 100
-    smc_update.launches = 0
+    smc_update.launches = mh_move.launches = 0
     outs, final, post, secs, evals, chain_launches, gt = run_chain(
         dev, n_steps, n_particles, trials=3)
-    # one population update a step after the first, in the warm-up chain and
-    # the three timed ones
+    # one population update and one MH move a step after the first, in the
+    # warm-up chain and the three timed ones
     chain_updates, want_updates = smc_update.launches, 4 * (n_steps - 1)
+    chain_moves = mh_move.launches
     res = check_chain(outs, final, post, gt, n_steps, n_particles)
     launches = chain_launches[-1]
     hyp = n_steps * n_particles / min(secs)
     print(f"phase 3 chain (bench_torch.run_chain): best of {[round(x, 4) for x in secs]} s, "
           f"{hyp:.1f} hypotheses/s on {smi}; kernel launches {chain_launches}, likelihood "
-          f"evaluations {evals}, smc_update launches {chain_updates} of 4 chains (expected "
-          f"{want_updates}); {json.dumps(res)}")
+          f"evaluations {evals}, smc_update launches {chain_updates} and mh_move launches "
+          f"{chain_moves} of 4 chains (expected {want_updates} each); {json.dumps(res)}")
     if not all(n > 0 and n == e == n_steps for n, e in zip(chain_launches, evals)):
         failures.append(f"launches {chain_launches} vs evaluations {evals}")
     if chain_updates != want_updates:
         failures.append(f"phase 3 smc_update launches {chain_updates} vs SMC steps "
                         f"{want_updates}")
+    if chain_moves != want_updates:
+        failures.append(f"phase 3 mh_move launches {chain_moves} vs SMC steps {want_updates}")
     if not res["density_vs_plain_ok"]:
         failures.append("chain densities vs plain version")
     phase_done(3)
@@ -4428,7 +4612,7 @@ def main() -> int:
     eval_launches, eval_timing, eval_one_block, eval_slices = bop_eval_parity(dev, failures,
                                                                               smi)
     phase_done("7a")
-    bop_launches = bop_inference(dev, failures, smi)
+    bop_launches, bop_moves = bop_inference(dev, failures, smi)
     phase_done("7b")
 
     # -- phase 8: bench_torch.py ------------------------------------------------
@@ -4445,8 +4629,8 @@ def main() -> int:
     phase_done(10)
 
     # -- phase 11: the inference-time grid -----------------------------------------
-    grid_launches, grid_timing, grid_cmp, grid_updates = inference_time_phase(dev, failures,
-                                                                              smi)
+    grid_launches, grid_timing, grid_cmp, grid_updates, grid_moves = inference_time_phase(
+        dev, failures, smi)
     phase_done(11)
 
     # -- phase 12: a recorded stream into the trackers, checkpoints ----------------
@@ -4481,6 +4665,10 @@ def main() -> int:
     # -- phase 19: the SMC population update against its plain version --------------
     smc_rows = smc_update_phase(dev, failures, smi)
     phase_done(19)
+
+    # -- phase 20: the MH move after the render against its plain version -------------
+    move_rows = mh_move_phase(dev, failures, smi)
+    phase_done(20)
 
     if failures:
         print(f"chip_smoke FAILED: {failures}", file=sys.stderr)
@@ -4613,6 +4801,28 @@ def main() -> int:
             "share_of_bound": row["bound_ms"] / row["kernel_device_ms"],
             "share_of_bound_paced": row["bound_ms"] / row["kernel_graph_ms"], "library_ms": None,
             "plain_kernels": row["plain_kernels_per_call"], "registers": row["registers"]})
+    # each shape's launches: the MH moves of a main path at its particle count
+    # (phases 3, 7b and 11)
+    move_paths = {
+        "synthcad_smc_mh.bop": (chain_moves, f"phase 3 flagship chain, 4 x {n_steps - 1} "
+                                f"MH moves"),
+        "synthcad_smc_mh.res100_p1000": (grid_moves, "phase 11 inference-time grid, 1000 "
+                                         "particles at 100 px"),
+        "synthcad_mh.bop": (bop_moves["mh_sampler"], "phase 7b mh_sampler on synthcad val "
+                            "scene 1")}
+    for row in move_rows:
+        n_launch, path = move_paths[row["cell"]]
+        entries.append({
+            "name": f"mh_move {row['particles']} particles {row['proposal']} ({row['cell']})",
+            "route": "cuda", "source": f"{PKG}/csrc/smc_update.cu", "replaces": None,
+            "launches": n_launch, "path": path,
+            "max_abs_err": max(v for k, v in row["check"].items() if k.endswith("_ulps")),
+            "ms": row["kernel_graph_ms"],
+            "device_ms": row["kernel_device_ms"], "plain_ms": row["plain_graph_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "share_of_bound": row["bound_ms"] / row["kernel_device_ms"],
+            "share_of_bound_paced": row["bound_ms"] / row["kernel_graph_ms"], "library_ms": None,
+            "plain_kernels": row["plain_kernels_per_call"], "registers": row["registers"]})
     for e in entries:
         if e["launches"] <= 0:
             print(f"chip_smoke FAILED: {e['name']} was not launched on its path",
@@ -4628,4 +4838,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [REPLAY_COUNT_FLAG]:
         sys.exit(replay_kernel_count(sys.argv[2]))
+    if sys.argv[1:2] == [MH_MOVE_PROFILE_FLAG]:
+        sys.exit(mh_move_profile())
     sys.exit(smc_update_profile() if sys.argv[1:2] == [SMC_UPDATE_PROFILE_FLAG] else main())

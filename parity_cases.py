@@ -14,6 +14,8 @@ card's checks (``chip_smoke.py``, ``chip_profile.py``):
   the kernel bounds of ``chip_smoke.py`` and ``chip_profile.py`` count;
 * the SMC population update: inputs from a seed, the plain version, the
   kernel and their comparison (``smc_update_cases``);
+* the MH move after the render: inputs from a seed, the plain version, the
+  kernel's path and their comparison (``mh_move_cases``);
 * one benchmark cell served with the port's telemetry on
   (``telemetry_cell``, which ``chip_profile.py telemetry`` prints), until the
   benchmark reads the telemetry itself.
@@ -507,6 +509,208 @@ def smc_update_cases(device, n, field_set):
     return out
 
 
+# -- the MH move after the render ----------------------------------------------
+# Applied by chip_smoke.py's phase 20 and the card tests: the particle counts,
+# the three proposals of smc_mh and mh_sampler, the cases, and the tolerance:
+# the kernel follows the plain version's operation order, so every field, both
+# log-densities and the increment are held bitwise (MH_MOVE_ULP = 0), and an
+# accept decision may differ nowhere
+MH_MOVE_SIZES = (1, 100, 1000)
+MH_MOVE_PROPOSALS = ("t_walk", "r_walk", "r_independent")
+MH_MOVE_CASES = ("random", "first", "last", "constant", "sum_o_zero", "u_zero")
+MH_MOVE_SHAPES = {"synthcad_smc_mh.bop": 100, "synthcad_smc_mh.res100_p1000": 1000,
+                  "synthcad_mh.bop": 1}
+MH_MOVE_ULP = 0
+
+
+def cube_posterior(device, n_particles=8, n_steps=7, variant="association", prior_t=None,
+                   observed=False, **fields):
+    """A 10 cm cube 1 m away behind a 16x16 camera and its fused posterior:
+    (params, posterior), with ``fields`` of ``Parameters``. ``prior_t``
+    defaults to 1 cm off the cube's centre; the observation is empty, or
+    with ``observed`` the cube's depth image with 5 mm noise."""
+    import numpy as np
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch import convert
+    from bayesianposeestimation.jl_tpu_torch.models.fused import fused_posterior
+    from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
+    from bayesianposeestimation.jl_tpu_torch.utils import mesh_io
+
+    params = convert.parameters_from_fields(
+        width=16, height=16, n_particles=n_particles, n_steps=n_steps,
+        **{"proposal_sigma_r": (0.5, 0.5, 0.5), **fields}, device=device)
+    mesh = mesh_io.cube_mesh(0.1)
+    cam = convert.camera_from_fields(width=16, height=16, f_x=20.0, f_y=20.0, c_x=7.5,
+                                     c_y=7.5, near=0.01, far=10.0)
+    t = torch.tensor([[0.01, -0.02, 1.0]])
+    obs = np.zeros((16, 16), np.float32)
+    if observed:
+        q = torch.tensor([[0.9, 0.1, 0.3, -0.2]])
+        clean = cuda_raster.render_depth(torch.as_tensor(mesh.vertices, dtype=torch.float32),
+                                         torch.as_tensor(mesh.faces, dtype=torch.int32), cam, t,
+                                         q / q.norm(), device="cpu")[0]
+        noise = 0.005 * torch.randn(clean.shape, generator=torch.Generator().manual_seed(0))
+        obs = torch.where(clean > 0, clean + noise, torch.zeros_like(clean)).numpy()
+    prior_t = t[0].numpy() + 0.01 if prior_t is None else prior_t
+    exp = convert.experiment_from_numpy(cam, mesh.vertices, mesh.faces, 0.7, prior_t, obs)
+    return params, fused_posterior(params, exp, variant, device=device)
+
+
+def mh_move_inputs(device, n, proposal, case, seed=0):
+    """One MH move's inputs from a seed, f32 on ``device``, as a dict: a
+    fused association posterior (a 10 cm cube, 16x16) whose ``render``
+    returns the case's sums (``ell_raw``, ``sum_o``: ~-0.3 ± 0.5 nats a
+    visible pixel, 20-300 pixels), ``proposal`` (``MH_MOVE_PROPOSALS``) and
+    its proposed and previous samples, the temperatures and the uniforms
+    ``u``. ``case`` (``MH_MOVE_CASES``): ``random`` ϕ 0.4 → 0.41; ``first``
+    0 → 1/480; ``last`` 479/480 → 1; ``constant`` 1 → 1 (no re-tempering, an
+    increment of 0, NaN at a -inf likelihood); ``sum_o_zero`` a quarter of
+    the proposals with Σo = 0 (likelihood -inf) and an eighth of the previous
+    samples at -inf; ``u_zero`` a quarter of the uniforms 0 and one 1 - 2^-24."""
+    import numpy as np
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.models import experiment_samplers
+    from bayesianposeestimation.jl_tpu_torch.samples import Sample
+
+    rng = np.random.default_rng([seed, n, MH_MOVE_PROPOSALS.index(proposal),
+                                 MH_MOVE_CASES.index(case)])
+    f32 = np.float32
+
+    def on(x):
+        return torch.as_tensor(np.asarray(x, f32)).to(device)
+
+    def quaternions():
+        q = rng.normal(0.0, 1.0, (n, 4))
+        return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+    prior_t = np.array([0.01, -0.02, 1.0]) + rng.normal(0.0, 0.01, 3)
+    sigma_t = (0.02, 0.03, 0.05)
+    params, post = cube_posterior(device, n, 480, prior_t=prior_t, sigma_t=sigma_t)
+    props = dict(zip(MH_MOVE_PROPOSALS, experiment_samplers._proposals(params, post, False)))
+
+    prev_t = prior_t + rng.normal(0.0, 1.0, (n, 3)) * np.asarray(sigma_t)
+    prev_r = quaternions()
+    prop_t = prev_t + rng.normal(0.0, 0.01, (n, 3)) if proposal == "t_walk" else prev_t
+    prop_r = (prev_r if proposal == "t_walk"
+              else quaternions() if proposal == "r_independent"
+              else prev_r + rng.normal(0.0, 0.05, (n, 4)))
+    phi, phi_new = {"first": (0.0, 1.0 / 480), "last": (479.0 / 480, 1.0),
+                    "constant": (1.0, 1.0)}.get(case, (0.4, 0.41))
+    sum_o = rng.uniform(20.0, 300.0, n).round()
+    ell_raw = sum_o * rng.normal(-0.3, 0.5, n)
+    prev_like = 50.0 * rng.normal(-0.3, 0.5, n)
+    z = (prev_t - prior_t) / np.asarray(sigma_t)
+    prev_prior = (-0.5 * z * z - np.log(sigma_t) - 0.5 * math.log(2.0 * math.pi)).sum(1)
+    prev_prob = prev_prior - math.log(2.0 * math.pi ** 2) + phi * prev_like
+    u = rng.uniform(0.0, 1.0, n)
+    if case in ("sum_o_zero", "constant"):
+        sum_o[rng.uniform(size=n) < 0.25] = 0.0
+        down = rng.uniform(size=n) < 0.125
+        prev_like[down] = prev_prob[down] = -np.inf
+    if case == "u_zero":
+        u[rng.uniform(size=n) < 0.25] = 0.0
+        u[int(rng.integers(n))] = 1.0 - 2.0 ** -24
+    ell_raw, sum_o = on(ell_raw), on(sum_o)
+    post.render = lambda sample, batch_ndim=1: (ell_raw, sum_o)
+    prop_t, prev_t = on(prop_t), on(prev_t)
+    if proposal != "t_walk":  # the proposal moves r alone: t is the previous tensor
+        prop_t = prev_t
+    prev_r = on(prev_r)
+    prop_r = prev_r if proposal == "t_walk" else on(prop_r)
+    return {"posterior": post, "proposal": props[proposal], "ell_raw": ell_raw, "sum_o": sum_o,
+            "proposed": Sample({"t": prop_t, "r": prop_r}),
+            "previous": Sample({"t": prev_t, "r": prev_r}, on(prev_prob), on(prev_like)),
+            "old_temp": on(phi), "new_temp": on(phi_new), "u": on(u)}
+
+
+def mh_move_plain(inp):
+    """The plain version of one move (``mh_transition_plain`` with the
+    increment): (the accepted Sample, the increment, log α, log u)."""
+    import torch
+
+    from bayesianposeestimation.jl_tpu_torch.posterior import retemper
+    from bayesianposeestimation.jl_tpu_torch.samplers import mh
+
+    args = (inp["posterior"], inp["proposal"], inp["proposed"], inp["previous"],
+            inp["old_temp"], inp["new_temp"], inp["u"])
+    out, incr = mh.mh_transition_plain(*args, increment=True)
+    proposed = inp["posterior"].tempered_logdensity_sample(inp["proposed"], inp["new_temp"])
+    alpha = mh.acceptance_ratio(inp["proposal"], proposed,
+                                retemper(inp["previous"], inp["old_temp"], inp["new_temp"]))
+    return out, incr, alpha, torch.log(inp["u"])
+
+
+def mh_move_kernel(inp):
+    """The move through ``samplers/mh.mh_transition`` with the increment, as
+    an SMC step calls it: (the accepted Sample, the increment, the path
+    ``mh_move_path`` chose)."""
+    from bayesianposeestimation.jl_tpu_torch.samplers import mh
+
+    args = (inp["posterior"], inp["proposal"], inp["proposed"], inp["previous"],
+            inp["old_temp"], inp["new_temp"], inp["u"])
+    path = mh.mh_move_path(*args[:4], inp["u"])
+    out, incr = mh.mh_transition(*args, increment=True)
+    return out, incr, path
+
+
+def compare_mh_move(inp, out, plain, path="kernel"):
+    """The kernel's move ``out`` (``mh_move_kernel``) against the plain one
+    (``mh_move_plain``) on the same inputs, as a dict with ``ok``: the path
+    taken is ``path``; t, r, log_prob, log_like and the increment within
+    ``MH_MOVE_ULP`` units in the last place (NaN where NaN, infinities
+    equal); the accept decisions, read as which log_prob was kept, equal
+    but where |log u - log α| lies within that bound."""
+    import numpy as np
+    import torch
+
+    sample, incr, taken = out
+    p_sample, p_incr, alpha, log_u = plain
+
+    def ulps(a, b):
+        a, b = a.detach().cpu().numpy().astype(np.float32), b.detach().cpu().numpy()
+        same_nan = np.isnan(a) == np.isnan(b)
+        ia = a.view(np.int32).astype(np.int64)
+        ib = b.view(np.int32).astype(np.int64)
+        ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)  # a line of floats: -0 == +0
+        ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+        gap = np.where(np.isnan(a) & np.isnan(b), 0, np.abs(ia - ib))
+        return int(gap.max(initial=0)) if same_nan.all() else 2 ** 31
+
+    names = ("t", "r")
+    gaps = {k: ulps(sample.variables[k], p_sample.variables[k]) for k in names}
+    gaps.update(log_prob=ulps(sample.log_prob, p_sample.log_prob),
+                log_like=ulps(sample.log_like, p_sample.log_like), incr=ulps(incr, p_incr))
+    prev = inp["previous"].variables
+
+    def moved(s):  # which particles took their proposal
+        return ~(torch.all(s.variables["t"] == prev["t"], dim=1)
+                 & torch.all(s.variables["r"] == prev["r"], dim=1))
+
+    accepted, p_accepted = moved(sample), moved(p_sample)
+    differ = (accepted != p_accepted).cpu()
+    margin = (log_u - alpha).abs().cpu()
+    spacing = torch.finfo(torch.float32).eps * torch.maximum(alpha.abs().cpu(),
+                                                             torch.ones_like(margin))
+    off = int((differ & ~(margin <= MH_MOVE_ULP * spacing)).sum())
+    ok = taken == path and all(g <= MH_MOVE_ULP for g in gaps.values()) and off == 0
+    return {"ok": ok, "path": taken, **{f"{k}_ulps": v for k, v in gaps.items()},
+            "accepted": int(p_accepted.sum()), "decisions_differ": int(differ.sum()),
+            "decisions_differ_off_bound": off}
+
+
+def mh_move_cases(device, n, proposal, path="kernel"):
+    """The move through ``mh_transition`` against the plain version in every
+    case of ``MH_MOVE_CASES`` at ``n`` particles with ``proposal``: (case,
+    ``compare_mh_move``'s dict) a case."""
+    out = []
+    for case in MH_MOVE_CASES:
+        inp = mh_move_inputs(device, n, proposal, case)
+        out.append((case, compare_mh_move(inp, mh_move_kernel(inp), mh_move_plain(inp), path)))
+    return out
+
+
 # -- one benchmark cell with the port's telemetry on ---------------------------
 
 ROOTS = ("image.call", "pf.run")  # the port's request roots
@@ -555,6 +759,7 @@ def telemetry_numbers(setup, window):
         "render_score_paths": {k[1]: v for k, v in counts.items()
                                if k[0] == "render_score_path"},
         "smc_update_paths": {k[1]: v for k, v in counts.items() if k[0] == "smc_update_path"},
+        "mh_move_paths": {k[1]: v for k, v in counts.items() if k[0] == "mh_move_path"},
         "pf": {"/".join(k[1:]): v for k, v in counts.items() if k[0] == "pf"},
         "dropped": setup["dropped"] + window["dropped"],
     }

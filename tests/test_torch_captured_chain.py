@@ -17,11 +17,10 @@ import pytest
 import torch
 
 import bench_torch
+import parity_cases
 from bayesianposeestimation.jl_tpu_torch import capture, convert, telemetry
 from bayesianposeestimation.jl_tpu_torch.models import experiment_samplers as TES
-from bayesianposeestimation.jl_tpu_torch.models.fused import fused_posterior
 from bayesianposeestimation.jl_tpu_torch.ops import cuda_raster
-from bayesianposeestimation.jl_tpu_torch.ops.cuda_raster import render_depth
 from bayesianposeestimation.jl_tpu_torch.samplers import (
     ComposedSampler,
     MetropolisHastings,
@@ -32,7 +31,6 @@ from bayesianposeestimation.jl_tpu_torch.samplers.chain import chain_runner
 from bayesianposeestimation.jl_tpu_torch.samples import Sample
 from bayesianposeestimation.jl_tpu_torch.samplers.smc import SmcState
 from bayesianposeestimation.jl_tpu_torch.tempering import LinearSchedule, StepCount
-from bayesianposeestimation.jl_tpu_torch.utils import mesh_io
 
 N = 8
 
@@ -46,21 +44,7 @@ def _params(**kw):
 @pytest.fixture(scope="module")
 def posterior():
     """A 10 cm cube 1 m away behind a 16x16 camera, observed with noise."""
-    params = _params()
-    mesh = mesh_io.cube_mesh(0.1)
-    cam = convert.camera_from_fields(width=16, height=16, f_x=20.0, f_y=20.0, c_x=7.5,
-                                     c_y=7.5, near=0.01, far=10.0)
-    verts = torch.as_tensor(mesh.vertices, dtype=torch.float32)
-    faces = torch.as_tensor(mesh.faces, dtype=torch.int32)
-    gt_t = torch.tensor([[0.01, -0.02, 1.0]])
-    gt_q = torch.tensor([[0.9, 0.1, 0.3, -0.2]])
-    gt_q = gt_q / gt_q.norm()
-    clean = render_depth(verts, faces, cam, gt_t, gt_q, device="cpu")[0]
-    noise = 0.005 * torch.randn(clean.shape, generator=torch.Generator().manual_seed(0))
-    obs = torch.where(clean > 0, clean + noise, torch.zeros_like(clean)).numpy()
-    exp = convert.experiment_from_numpy(cam, mesh.vertices, mesh.faces, 0.7,
-                                        gt_t[0].numpy() + 0.01, obs)
-    return fused_posterior(params, exp, "association", device="cpu")
+    return parity_cases.cube_posterior("cpu", N, observed=True)[1]
 
 
 def _mixed(params, post):

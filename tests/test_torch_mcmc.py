@@ -177,7 +177,8 @@ def test_mh_step_matches_with_injected_draws(kind, seed):
     t_prev = t_retemper(tstate.sample, tstate.temperature, t_temp)
     t_proposed = TSample({k: torch.as_tensor(np.array(v))
                           for k, v in j_proposed.variables.items()})
-    t_res, t_new = sampler.transition(tm, t_prev, t_proposed, u, t_temp)
+    t_res, t_new = sampler.transition(tm, tstate.sample, t_proposed, u, tstate.temperature,
+                                      t_temp)
 
     j_alpha = JMH.acceptance_ratio(jprop, jm.tempered_logdensity_sample(j_proposed, j_temp),
                                    j_prev)

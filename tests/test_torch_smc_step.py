@@ -45,6 +45,7 @@ from bayesianposeestimation.jl_tpu_torch import proposals as TPr
 from bayesianposeestimation.jl_tpu_torch.models import experiment_samplers as TES
 from bayesianposeestimation.jl_tpu_torch.models.fused import fused_posterior as t_fused
 from bayesianposeestimation.jl_tpu_torch.rngs import Rngs
+from bayesianposeestimation.jl_tpu_torch.samplers import mh as TMH
 from bayesianposeestimation.jl_tpu_torch.samplers import smc as TS
 
 N = 24
@@ -127,7 +128,7 @@ def _jax_draws(smc, key):
 def _inject(monkeypatch, draws):
     """Hand the port's step the JAX draws in ``draws`` (a one-element list
     the test refills before each step)."""
-    inner_deltas, inner_mh, inner_res = TS.adaptive_deltas, TS.mh_kernel, TS.maybe_resample
+    inner_deltas, inner_mh, inner_res = TS.adaptive_deltas, TMH.mh_kernel, TS.maybe_resample
     log = {"accepted": 0, "rejected": 0, "resampled": 0}
 
     def deltas(state, names, sigmas, quaternion_names, normals):
@@ -146,7 +147,7 @@ def _inject(monkeypatch, draws):
         return inner_res(draws[0][2], state, threshold)
 
     monkeypatch.setattr(TS, "adaptive_deltas", deltas)
-    monkeypatch.setattr(TS, "mh_kernel", mh)
+    monkeypatch.setattr(TMH, "mh_kernel", mh)
     monkeypatch.setattr(TS, "maybe_resample", resample)
     monkeypatch.setattr(TS, "propose",
                         lambda generator, proposal, previous:

@@ -99,8 +99,9 @@ RUNS = {"image": _image_runs, "tracker": _tracker_run}
 @pytest.mark.parametrize("path", list(RUNS))
 def test_off_reads_no_clock_and_keeps_nothing(path, monkeypatch):
     """Off, a run opens no span (none is even made), reads no clock and
-    reports only what it always reports: the evaluations and the path of
-    each SMC population update."""
+    reports only what it always reports: the evaluations, the path of each
+    SMC population update and, where the chain makes MH moves (the image
+    runner's ``smc_mh``, not the tracker), the path of each move."""
     def refused(*a, **kw):
         raise AssertionError("read or made while telemetry is off")
 
@@ -116,7 +117,8 @@ def test_off_reads_no_clock_and_keeps_nothing(path, monkeypatch):
         RUNS[path]()
     finally:
         telemetry.remove_listener(listen)
-    assert set(seen) == {("evaluation", "cpu"), ("smc_update_path", "plain")}
+    moves = {("mh_move_path", "plain")} if path == "image" else set()
+    assert set(seen) == {("evaluation", "cpu"), ("smc_update_path", "plain")} | moves
     snap = telemetry.snapshot()
     assert snap["spans"] == [] and not snap["counts"] and snap["dropped"] == 0
     assert telemetry.span("a") is telemetry.span("b")
