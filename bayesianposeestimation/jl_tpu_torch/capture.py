@@ -37,7 +37,7 @@ from . import telemetry
 from .rngs import Rngs
 from .telemetry import count, recording, span
 
-__all__ = ["ChainRunner", "StepGraph", "tree_leaves", "clone_tree", "copy_tree"]
+__all__ = ["ChainRunner", "StepGraph", "tree_leaves", "clone_tree", "copy_tree", "carried"]
 
 
 # -- static state -------------------------------------------------------------
@@ -98,6 +98,13 @@ def copy_tree(dst, src):
     for d, s in zip(dst_leaves, src_leaves):
         if s is not d:
             d.copy_(s)
+
+
+def carried(state):
+    """The part of a step's state that the next step reads: a state with a
+    ``carried()`` (a multiple-try state, whose move record is reported and
+    not read) gives that, any other state itself."""
+    return state.carried() if hasattr(state, "carried") else state
 
 
 # -- one captured step --------------------------------------------------------
@@ -190,9 +197,12 @@ class ChainRunner:
 
     ``run(seed, n_steps, ...)`` does what ``samplers.chain.sample_chain``
     does with ``Rngs.from_seed(seed)``; no capture depends on ``n_steps``.
-    The collected outputs of a step are written by the step itself, at a
-    device step counter, into a chunk of ``CHUNK`` rows, copied out every
-    ``CHUNK`` steps. ``before_step(i)``, where given, runs on the host before
+    The buffers hold the state as the next step reads it (``carried``). The
+    collected outputs of a step (``collect_variables`` of the buffers, and of
+    the state the step returned for the rows only it reports, under the keys
+    the initial state gives) are written by the step itself, at a device step
+    counter, into a chunk of ``CHUNK`` rows, copied out every ``CHUNK``
+    steps. ``before_step(i)``, where given, runs on the host before
     step ``i`` (0-based), e.g. to copy that step's observation into the
     model's static buffer."""
 
@@ -214,8 +224,8 @@ class ChainRunner:
     def _setup(self, state):
         from .samplers.chain import collect_variables
 
-        self.state = clone_tree(state)
-        out = collect_variables(self.state, self.collect_vars)
+        out = collect_variables(state, self.collect_vars)
+        self.state = clone_tree(carried(state))
         self.chunk = {k: torch.empty((self.CHUNK, *v.shape), dtype=v.dtype, device=v.device)
                       for k, v in out.items()}
         self.counter = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -234,10 +244,12 @@ class ChainRunner:
 
         def fn():
             _, new = branch.step(rngs, build_model(), state)
-            copy_tree(state, new)
+            copy_tree(state, carried(new))
+            # the carried state read from its buffers; what the step only reports, from ``new``
+            out = {**collect_variables(new, names), **collect_variables(state, names)}
             slot = torch.remainder(counter, size)
-            for k, v in collect_variables(state, names).items():
-                chunk[k].index_copy_(0, slot, v.unsqueeze(0))
+            for k, c in chunk.items():
+                c.index_copy_(0, slot, out[k].unsqueeze(0))
             counter.add_(1)
 
         return fn
@@ -249,7 +261,7 @@ class ChainRunner:
         if self.state is None:
             self._setup(state)
         else:
-            copy_tree(self.state, state)
+            copy_tree(self.state, carried(state))
         self.counter.zero_()
 
     def advance(self, n, before_step=None):

@@ -2,7 +2,7 @@ from .chain import collect_variables, sample_chain, smc_inference
 from .composed import ComposedSampler, CoordinateSampler
 from .gibbs import Gibbs
 from .mh import MCMCState, MetropolisHastings, acceptance_ratio, mh_kernel, select_sample
-from .mtm import MultipleTry, gumbel_index, gumbel_noise
+from .mtm import MtmState, MultipleTry, gumbel_index, gumbel_noise
 from .smc import (
     AdaptiveKernel,
     BootstrapKernel,

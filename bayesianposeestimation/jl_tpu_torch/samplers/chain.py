@@ -19,7 +19,7 @@ import weakref
 
 import torch
 
-from ..capture import ChainRunner
+from ..capture import ChainRunner, carried
 from ..devices import resolve_device
 from ..rngs import Rngs
 from .mh import MCMCState
@@ -30,14 +30,15 @@ __all__ = ["sample_chain", "smc_inference", "collect_variables", "chain_runner"]
 
 def collect_variables(sample_or_state, var_names=("t", "r")):
     """Thin a sample or state to the named variables and the densities, plus
-    the weights, evidence and temperature of an SMC state."""
+    the rows a state reports beside them (its ``rows(var_names)``: an SMC
+    state's weights, evidence and temperature, a multiple-try state's move
+    record where ``var_names`` names ``mtm.RECORD``)."""
     state = sample_or_state
     s = state.sample if isinstance(state, (SmcState, MCMCState)) else state
     out = {**{k: s.variables[k] for k in var_names if k in s.variables},
            "log_prob": s.log_prob, "log_like": s.log_like}
-    if isinstance(state, SmcState):
-        out.update(log_weights=state.log_weights, log_evidence=state.log_evidence,
-                   log_relative_ess=state.log_relative_ess, temperature=state.temperature)
+    if hasattr(state, "rows"):
+        out.update(state.rows(var_names))
     return out
 
 
@@ -63,7 +64,9 @@ def sample_chain(seed: int, model, sampler, n_steps, n_particles=None,
     ``collect_every``-th is kept. Random numbers come from
     ``Rngs.from_seed(seed, device)``; ``model`` must live on ``device``.
     ``captured`` (the default) steps through the cached ``chain_runner``;
-    ``captured=False`` runs the eager loop. Both draw the same numbers."""
+    ``captured=False`` runs the eager loop. Both draw the same numbers,
+    collect the rows the initial state names, and return the final state as
+    the next step would read it (``capture.carried``)."""
     dev = resolve_device(device)
     if torch.device(model.device).type != dev.type:
         raise ValueError(f"model is on {model.device}, chain asked for {dev}")
@@ -72,13 +75,14 @@ def sample_chain(seed: int, model, sampler, n_steps, n_particles=None,
             seed, n_steps, collect_every, n_burn_in)
     rngs = Rngs.from_seed(seed, dev)
     _, state = sampler.init(rngs, model, n_particles)
+    keys = collect_variables(state, collect_vars).keys()
     outs = []
     for i in range(n_steps - 1):
         _, state = sampler.step(rngs, model, state)
         if i >= n_burn_in and (i - n_burn_in) % collect_every == 0:
             outs.append(collect_variables(state, collect_vars))
-    keys = outs[0].keys() if outs else ()
-    return {k: torch.stack([o[k] for o in outs]) for k in keys}, state
+    return ({k: torch.stack([o[k] for o in outs]) for k in keys} if outs else {},
+            carried(state))
 
 
 def smc_inference(seed: int, posterior, sampler, params, collect_vars=("t", "r"),

@@ -81,6 +81,11 @@ class SmcState:
     temperature: Any  # scalar
     log_relative_ess: Any  # scalar, log(ESS / N)
 
+    def rows(self, var_names) -> dict:
+        """What a chain collects of the state beside its sample's variables."""
+        return dict(log_weights=self.log_weights, log_evidence=self.log_evidence,
+                    log_relative_ess=self.log_relative_ess, temperature=self.temperature)
+
 
 @dataclass(frozen=True)
 class ParticleShard:

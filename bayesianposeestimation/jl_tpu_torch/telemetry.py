@@ -29,7 +29,7 @@ import time
 import torch
 
 __all__ = ["count", "add_listener", "remove_listener", "recording", "enable", "disable",
-           "enabled", "reset", "snapshot", "span", "Laps", "SPAN_LIMIT"]
+           "enabled", "reset", "snapshot", "span", "profiled", "Laps", "SPAN_LIMIT"]
 
 # -- counts a replay reports again --------------------------------------------
 
@@ -186,6 +186,13 @@ class _Span:
 def span(name):
     """A context that times ``name`` while telemetry is on."""
     return _Span(name) if ON else _NULL
+
+
+def profiled(name):
+    """A profiler range ``bpe.<name>`` while ``torch.profiler`` records
+    (whether or not telemetry is on), else a no-op context: it names the
+    device work of a part of a step in an eager profile."""
+    return torch.profiler.record_function("bpe." + name) if _profiling() else _NULL
 
 
 def snapshot() -> dict:

@@ -735,7 +735,8 @@ def telemetry_numbers(setup, window):
     counted part of a step and their share of the loop, mean spans of a
     request in ms, the set-up's span totals (s) and capture self time, the
     window's ``render_score`` launches beside their plans' paths, the SMC
-    population updates by path, and its
+    population updates and MH moves by path, the multiple-try moves by
+    proposal and the poses their two launches scored, and its
     particle filters' runs, frames and scored poses by kind."""
     counts, spans = window["counts"], _span_totals(window["spans"])
     steps = counts[("runner", "steps")]
@@ -760,6 +761,8 @@ def telemetry_numbers(setup, window):
                                if k[0] == "render_score_path"},
         "smc_update_paths": {k[1]: v for k, v in counts.items() if k[0] == "smc_update_path"},
         "mh_move_paths": {k[1]: v for k, v in counts.items() if k[0] == "mh_move_path"},
+        "mtm_moves": {k[1]: v for k, v in counts.items() if k[0] == "mtm_move"},
+        "mtm_poses": {k[1]: v for k, v in counts.items() if k[0] == "mtm_poses"},
         "pf": {"/".join(k[1:]): v for k, v in counts.items() if k[0] == "pf"},
         "dropped": setup["dropped"] + window["dropped"],
     }

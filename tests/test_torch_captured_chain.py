@@ -47,17 +47,20 @@ def posterior():
     return parity_cases.cube_posterior("cpu", N, observed=True)[1]
 
 
-def _mixed(params, post):
-    """A composed sampler of an MH and a multiple-try branch."""
+def _mixed(params, post, mtm_first=False):
+    """A composed sampler of an MH and a multiple-try branch (the MH branch
+    first, which initialises the chain, unless ``mtm_first``)."""
     mh, mtm = TES.mh_sampler(params, post), TES.mtm_sampler(params, post)
     schedule = LinearSchedule(params.n_steps)
-    return ComposedSampler((MetropolisHastings(mh.samplers[0].proposal, schedule),
-                            MultipleTry(mtm.samplers[1].proposal, 3, schedule)), (0.5, 0.5))
+    branches = (MetropolisHastings(mh.samplers[0].proposal, schedule),
+                MultipleTry(mtm.samplers[1].proposal, 3, schedule))
+    return ComposedSampler(branches[::-1] if mtm_first else branches, (0.5, 0.5))
 
 
 SAMPLERS = {"smc_mh": TES.smc_mh, "mh_sampler": TES.mh_sampler,
             "mtm_sampler": TES.mtm_sampler, "smc_forward": TES.smc_forward,
-            "smc_bootstrap": TES.smc_bootstrap, "composed_mh_mtm": _mixed}
+            "smc_bootstrap": TES.smc_bootstrap, "composed_mh_mtm": _mixed,
+            "composed_mtm_mh": lambda params, post: _mixed(params, post, mtm_first=True)}
 
 
 def _assert_trees_equal(a, b):
@@ -71,7 +74,8 @@ def _assert_trees_equal(a, b):
 @pytest.mark.parametrize("name", list(SAMPLERS))
 def test_static_buffer_chain_equals_the_eager_loop(posterior, name):
     """Outputs and final state bitwise equal to the eager loop, for each
-    sampler family and a composed MH + multiple-try sampler; a second run on
+    sampler family and a composed sampler of an MH and a multiple-try branch
+    in either order; a second run on
     the cached runner with another seed equals its eager run too."""
     params = posterior.params
     sampler = SAMPLERS[name](params, posterior)
